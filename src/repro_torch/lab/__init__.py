@@ -1,0 +1,49 @@
+"""repro_torch.lab — experiments as data, on the GPU.
+
+Declare an experiment once, exactly as for the JAX package's ``repro.lab``::
+
+    from repro_torch import lab
+
+    sc = lab.Scenario(
+        cluster=lab.ClusterSpec(n_nodes=12500, power_seed=0),
+        workload=lab.WorkloadSpec(process="poisson", horizon=200.0,
+                                  work_mean=6.0, params={"rate": 6880.0}),
+        policy=lab.PolicySpec("psts", params={"floor": 0.1}),
+    )
+
+then sweep it: ``lab.sweep(base=sc, grid={"seed": range(128)})`` sends the
+uniform seed sweep to the batched backend, one batched run on the CUDA
+device through the hand-written kernels (``device="cpu"`` runs the plain
+PyTorch versions instead). ``lab.run(sc, backend="batched")`` runs one
+scenario. Results carry the same canonical :class:`RunResult` schema and
+fingerprints as ``repro.lab``. The other backends come with later slices of
+the port.
+"""
+
+from .api import BATCH_THRESHOLD, expand_grid, run, sweep
+from .backends import (
+    BACKENDS,
+    BATCHED_POLICIES,
+    Backend,
+    BackendError,
+    get_backend,
+)
+from .result import METRIC_SCHEMA, RunResult, make_metrics
+from .specs import (
+    ClusterSpec,
+    FaultSpec,
+    ObsSpec,
+    PolicySpec,
+    Scenario,
+    TraceRef,
+    WorkloadSpec,
+    resolve_fault_schedule,
+)
+
+__all__ = [
+    "BATCH_THRESHOLD", "expand_grid", "run", "sweep",
+    "BACKENDS", "BATCHED_POLICIES", "Backend", "BackendError", "get_backend",
+    "METRIC_SCHEMA", "RunResult", "make_metrics",
+    "ClusterSpec", "FaultSpec", "ObsSpec", "PolicySpec", "Scenario",
+    "TraceRef", "WorkloadSpec", "resolve_fault_schedule",
+]

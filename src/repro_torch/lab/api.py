@@ -1,0 +1,98 @@
+"""``run`` / ``sweep``: the two entry points over every ported backend.
+
+``run(scenario, backend="batched")`` executes one scenario after
+eligibility validation. ``sweep(...)`` executes many scenarios — given
+explicitly or expanded from a ``base`` x ``grid`` product — and
+auto-dispatches uniform seed sweeps of ``>= batch_threshold`` scenarios to
+the batched backend, where the whole sweep is ONE batched run on the GPU.
+Anything else would go to the event engine, which a later slice of the port
+brings: until then it raises a ``BackendError`` that says so.
+
+Backend options pass through: ``dt``, ``fifo_dispatch`` and ``device`` (the
+batched backend runs on the CUDA device unless ``device="cpu"``).
+"""
+
+from __future__ import annotations
+
+import itertools
+import warnings
+
+from .backends import get_backend, uniform_but_for_seed
+from .result import RunResult
+from .specs import Scenario
+
+__all__ = ["run", "sweep", "expand_grid", "BATCH_THRESHOLD"]
+
+# seed sweeps at least this long go to the accelerator when eligible
+BATCH_THRESHOLD = 8
+
+
+def run(scenario: Scenario, backend: str = "events",
+        **backend_options) -> RunResult:
+    """Execute one scenario on one backend; raises ``BackendError`` with the
+    reason when the spec is not expressible there (or the backend is not
+    ported yet — the default, ``events``, is not)."""
+    return get_backend(backend).run(scenario, **backend_options)
+
+
+def expand_grid(base: Scenario, grid: dict) -> list[Scenario]:
+    """Cartesian product over dotted-path axes:
+    ``expand_grid(sc, {"seed": range(64), "policy.name": ["jsq", "psts"]})``.
+    """
+    if not grid:
+        return [base]
+    paths = list(grid)
+    out = []
+    for combo in itertools.product(*(list(grid[p]) for p in paths)):
+        out.append(base.updated(dict(zip(paths, combo))))
+    return out
+
+
+def sweep(scenarios: list[Scenario] | None = None, *,
+          base: Scenario | None = None, grid: dict | None = None,
+          backend: str = "auto", batch_threshold: int = BATCH_THRESHOLD,
+          **backend_options) -> list[RunResult]:
+    """Execute many scenarios; returns one RunResult per scenario, in order.
+
+    Dispatch: ``backend="auto"`` sends uniform seed sweeps of
+    ``>= batch_threshold`` batched-eligible scenarios to the batched backend
+    in one call, and the event engine otherwise. Any explicit backend name
+    forces that backend for every scenario.
+    """
+    if scenarios is None:
+        if base is None:
+            raise ValueError("sweep needs scenarios or base (+ grid)")
+        scenarios = expand_grid(base, grid or {})
+    else:
+        if base is not None or grid is not None:
+            raise ValueError("give either scenarios or base+grid, not both")
+        scenarios = list(scenarios)
+    if not scenarios:
+        return []
+
+    batched = get_backend("batched")
+    # a seed axis over one trace replays identical workloads
+    if (len(scenarios) > 1
+            and all(sc.workload.is_trace for sc in scenarios)
+            and len({sc.workload.trace_files() for sc in scenarios}) == 1
+            and len({sc.seed for sc in scenarios}) > 1):
+        warnings.warn("trace workloads ignore the seed axis — these "
+                      "scenarios replay the identical trace (give the "
+                      "TraceRef a scale= to resample per seed)",
+                      stacklevel=2)
+    uniform = (backend in ("auto", "batched")
+               and uniform_but_for_seed(scenarios))
+    if backend == "auto":
+        # uniformity means eligibility only needs one representative:
+        # scenarios differ in seed/name, which eligibility never reads
+        batchable = (
+            len(scenarios) >= batch_threshold
+            and uniform
+            and batched.eligible(scenarios[0]) is None)
+        backend = "batched" if batchable else "events"
+    if backend == "batched" and uniform:
+        return batched.run_many(scenarios, **backend_options)
+    chosen = get_backend(backend)
+    for sc in scenarios:  # fail fast, before any scenario has run
+        chosen.check(sc)
+    return [chosen.run(sc, **backend_options) for sc in scenarios]

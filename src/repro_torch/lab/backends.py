@@ -1,0 +1,404 @@
+"""Backend protocol, the registry, and the batched backend.
+
+* ``"batched"`` — the vectorized fluid backend (``runtime.vector_backend``):
+  B scenarios as one batched run on the GPU, through the hand-written scan
+  and dispatch kernels. Positional policies only (``arrival_only``/``psts``)
+  — it carries no per-task migration histories — and faults become a power
+  up/down schedule.
+
+The JAX package's other backends (``events``, ``legacy``, ``federated``,
+``online``) are not ported yet: :func:`get_backend` raises a
+:class:`BackendError` that says so. Eligibility reasons and results are
+those of ``repro.lab.backends``, word for word, so the two packages can be
+held against each other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+
+import numpy as np
+
+from ..runtime.policies import PstsPolicy
+from ..runtime.vector_backend import VectorConfig, simulate_batch
+from ..runtime.workload import batch_slots
+from .result import RunResult, make_metrics
+from .specs import Scenario, resolve_fault_schedule
+
+__all__ = [
+    "Backend",
+    "BackendError",
+    "BACKENDS",
+    "register_backend",
+    "get_backend",
+    "BatchedBackend",
+    "BATCHED_POLICIES",
+    "NOT_PORTED",
+]
+
+# policies expressible without per-task state (the batched backend's limit)
+BATCHED_POLICIES = ("arrival_only", "psts")
+
+# cost-model constants a PolicySpec may override — derived from PstsPolicy's
+# own fields so the batched param validation stays in lockstep with what the
+# events backend's constructor accepts
+_COST_KEYS = tuple(f.name for f in dataclasses.fields(PstsPolicy))
+
+# the JAX package's backends that later slices of the port bring
+NOT_PORTED = ("events", "legacy", "federated", "online")
+
+
+class BackendError(ValueError):
+    """Scenario not eligible on the requested backend."""
+
+
+class Backend:
+    """One execution surface. Subclasses register under ``BACKENDS``."""
+
+    name: str = "?"
+
+    def eligible(self, scenario: Scenario) -> str | None:
+        """Reason this scenario cannot run here, or ``None`` if it can."""
+        return None
+
+    def check(self, scenario: Scenario) -> None:
+        reason = self.eligible(scenario)
+        if reason is not None:
+            raise BackendError(f"backend {self.name!r}: {reason}")
+
+    def run(self, scenario: Scenario, **options) -> RunResult:
+        raise NotImplementedError
+
+
+BACKENDS: dict[str, Backend] = {}
+
+
+def register_backend(cls: type[Backend]) -> type[Backend]:
+    BACKENDS[cls.name] = cls()
+    return cls
+
+
+def get_backend(name: str) -> Backend:
+    if name in NOT_PORTED:
+        raise BackendError(
+            f"backend {name!r} is not ported to repro_torch yet (a later "
+            f"slice of the port brings it); run it with the JAX package's "
+            f"repro.lab, or use the 'batched' backend")
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}; have {sorted(BACKENDS)}")
+    return BACKENDS[name]
+
+
+# fields allowed to differ between scenarios sharing one batched compile
+# (the workload-realization axes)
+SEED_FIELDS = ("seed", "name")
+
+
+def uniform_but_for_seed(scenarios: list[Scenario]) -> bool:
+    """True when the scenarios differ only in workload seed/name — the
+    shape the batched backend can run as one compiled batch."""
+    def key(sc):
+        d = sc.to_dict()
+        for f in SEED_FIELDS:
+            d.pop(f, None)
+        return json.dumps(d, sort_keys=True)
+    first = key(scenarios[0])
+    return all(key(sc) == first for sc in scenarios[1:])
+
+
+def _unknown_policy_params(scenario: Scenario) -> str | None:
+    """Mirror the events backend's constructor check: a param the policy
+    cannot take must be an eligibility error everywhere, never silently
+    dropped — otherwise auto-dispatch would make the same typo'd sweep fail
+    or run depending on its size. Only psts carries cost constants."""
+    allowed = set(_COST_KEYS) if scenario.policy.name == "psts" else set()
+    unknown = set(scenario.policy.params) - allowed
+    if unknown:
+        return (f"policy {scenario.policy.name!r} params not expressible "
+                f"here: {sorted(unknown)} (accepted: {sorted(allowed)})")
+    return None
+
+
+def _fault_nodes_in_range(scenario: Scenario) -> str | None:
+    n = scenario.cluster.size
+    for t, node in scenario.faults.failures + scenario.faults.joins:
+        if not 0 <= node < n:
+            return f"fault event at t={t} names node {node} outside 0..{n - 1}"
+    for t, node, _ in scenario.faults.resizes:
+        if not 0 <= node < n:
+            return (f"resize event at t={t} names node {node} outside "
+                    f"0..{n - 1}")
+    return None
+
+
+def _trace_problem(scenario: Scenario) -> str | None:
+    """A missing/unparseable trace must be an eligibility reason, not a
+    mid-run traceback after the 'backends' report said eligible."""
+    if not scenario.workload.is_trace:
+        return None
+    label = scenario.workload.trace_path
+    try:  # memoized: the run itself reuses this materialization
+        scenario.workload.materialize(scenario.seed)
+    except Exception as exc:  # noqa: BLE001 — surface any load failure
+        return f"trace {label!r} unreadable: {exc}"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# batched — vectorized fluid backend (one batched run over B scenarios)
+# ---------------------------------------------------------------------------
+
+@register_backend
+class BatchedBackend(Backend):
+    name = "batched"
+    default_dt = 1.0
+
+    def eligible(self, scenario):
+        if scenario.policy.name not in BATCHED_POLICIES:
+            return (f"policy {scenario.policy.name!r} needs per-task state; "
+                    f"the batched backend supports positional policies only "
+                    f"({', '.join(BATCHED_POLICIES)})")
+        bad = _unknown_policy_params(scenario)
+        if bad is not None:
+            return bad
+        if scenario.workload.dag is not None:
+            return ("workload declares a task-dependency DAG; the fluid "
+                    "model has no per-task identity to gate releases on "
+                    "parent completions — run on the events backend")
+        # (the JAX package's checks on trace dependency edges, placement
+        # constraints and evictions read TraceRef workloads, which this
+        # slice of the port does not have)
+        bad = _fault_nodes_in_range(scenario) or _trace_problem(scenario)
+        if bad is not None:
+            return bad
+        failures, joins, _ = resolve_fault_schedule(scenario)
+        failed_at: dict[int, float] = {}
+        for t, node in sorted(failures):
+            failed_at.setdefault(node, t)
+        for t, node in joins:
+            if node not in failed_at or failed_at[node] >= t:
+                return (f"join of node {node} at t={t} has no earlier "
+                        f"failure; the batched backend models faults as a "
+                        f"power up/down schedule")
+        # the fluid model cannot park work during a total outage (the
+        # events backend can); reject schedules that zero the capacity
+        n = scenario.cluster.size
+        down: set[int] = set()
+        for t, node, up in sorted(
+                [(t, nd, False) for t, nd in failures]
+                + [(t, nd, True) for t, nd in joins]):
+            down.discard(node) if up else down.add(node)
+            if len(down) == n:
+                return (f"all {n} nodes down at t={t}; the fluid model "
+                        f"cannot hold work through a total outage — use "
+                        f"the events backend")
+        return None
+
+    # -- scenario -> tensors -----------------------------------------------
+    def compile(self, scenarios: list[Scenario], dt: float,
+                fifo_dispatch: bool = False):
+        """Shared lowering for run/run_many: (slot, works, powers, cfg,
+        power_scale). All scenarios must share cluster/policy/faults/
+        workload shape (only seeds may differ)."""
+        if not uniform_but_for_seed(scenarios):
+            raise BackendError(
+                "batched batch: scenarios must be identical except for "
+                "seed/name (one cluster, policy, fault schedule and "
+                "workload shape per compile)")
+        base = scenarios[0]
+        powers = base.cluster.resolve_powers()
+        n = int(powers.size)
+        wls = [sc.workload.materialize(sc.seed) for sc in scenarios]
+        horizon = base.workload.horizon
+        if horizon is None:  # whole-trace replay: cover the last arrival
+            horizon = max((wl.horizon for wl in wls), default=0.0) + dt
+        # ceil, not round: a final partial slot must still admit arrivals
+        # in [floor(horizon/dt)*dt, horizon) or the backends diverge
+        n_slots = max(int(math.ceil(horizon / dt - 1e-9)), 1)
+        pol = base.policy
+        # unset cost constants fall back to the PSTS policy's own defaults
+        # (not VectorConfig's) so the same Scenario runs the same trigger
+        # hysteresis on the events and batched backends
+        defaults = PstsPolicy()
+        cost = {k: float(pol.params.get(k, getattr(defaults, k)))
+                for k in _COST_KEYS}
+        if base.workload.is_trace:
+            # a trace carries its own packet/work ratio; the spec's
+            # sampling means are never read for traces
+            tot_w = sum(float(wl.works.sum()) for wl in wls)
+            packets_per_unit = (sum(float(wl.packets.sum()) for wl in wls)
+                                / max(tot_w, 1e-12))
+        else:
+            # sample_packets draws 1 + Poisson(packet_mean), so the
+            # realized mean is packet_mean + 1
+            packets_per_unit = ((1.0 + base.workload.packet_mean)
+                                / base.workload.work_mean)
+        cfg = VectorConfig(
+            n_nodes=n, n_slots=n_slots, dt=float(dt),
+            rebalance=(pol.name == "psts"),
+            packets_per_unit=packets_per_unit,
+            fifo_dispatch=fifo_dispatch,
+            # probes are per-slot engine outputs; lifecycle tracing has no
+            # fluid analogue (no per-task identity) and is flagged ignored
+            probe=(base.obs is not None
+                   and base.obs.probe_every is not None),
+            **cost)
+        slot, works, _ = batch_slots(wls, dt, n_slots)
+        scale = self._power_scale(base, n_slots, n, dt)
+        return slot, works, powers, cfg, scale
+
+    @staticmethod
+    def _power_scale(scenario, n_slots, n, dt):
+        failures, joins, resizes = resolve_fault_schedule(scenario)
+        if not (failures or joins or resizes):
+            return None
+        scale = np.ones((n_slots, n))
+        # fold up/down state and the resize fraction separately: a node
+        # that fails at fraction 0.5 rejoins at 0.5, like the event engine
+        events = sorted(
+            [(t, node, "fail", 0.0) for t, node in failures]
+            + [(t, node, "join", 1.0) for t, node in joins]
+            + [(t, node, "resize", f) for t, node, f in resizes])
+        up = np.ones(n, dtype=bool)
+        frac = np.ones(n)
+        for t, node, kind, value in events:
+            if kind == "fail":
+                up[node] = False
+            elif kind == "join":
+                up[node] = True
+            else:  # resize; resolve_fault_schedule guarantees value > 0
+                frac[node] = value
+            # epsilon-guarded floor: 40.0 // 0.1 is 399 in floats, but the
+            # event belongs to the slot containing t (slot 400)
+            s = min(max(int(math.floor(t / dt + 1e-9)), 0), n_slots)
+            scale[s:, node] = frac[node] if up[node] else 0.0
+        return scale
+
+    @staticmethod
+    def _obs_extras(bm, i, cfg) -> dict:
+        """Per-scenario telemetry payload from the engine's probe series, in the
+        same shape the events backend exports (minus the Chrome trace and
+        the hypergrid recursion levels the fluid model does not have)."""
+        def clean(arr):
+            return [float(x) if math.isfinite(x) else None for x in arr]
+        times = (np.arange(cfg.n_slots) * cfg.dt).tolist()
+        imb = bm.probe_imbalance[i]
+        cross = bm.probe_crossover[i]
+        fired = bm.probe_fires[i]
+        probes = {
+            "every": cfg.dt,
+            "t": times,
+            "node_load": [[float(x) for x in row]
+                          for row in bm.probe_queue[i]],
+            "imbalance_by_level": [[v] for v in clean(imb)],
+            "fires": [int(f) for f in fired],
+        }
+        events = [
+            {"t": times[k], "fired": bool(fired[k]),
+             "imbalance": None if not math.isfinite(imb[k])
+             else float(imb[k]),
+             "crossover": None if not math.isfinite(cross[k])
+             else float(cross[k]),
+             "floor": cfg.floor,
+             "bound": None if not math.isfinite(cross[k])
+             else max(float(cross[k]), cfg.floor)}
+            for k in range(cfg.n_slots)
+        ]
+        trigger = {
+            "events": events,
+            "summary": {
+                "n_evals": cfg.n_slots if cfg.rebalance else 0,
+                "n_fires": int(fired.sum()),
+                "n_skips": (cfg.n_slots - int(fired.sum())
+                            if cfg.rebalance else 0),
+            },
+        }
+        return {"probes": probes, "trigger": trigger}
+
+    def _result(self, scenario, bm, i, cfg, fault_counts, extra_ignored=(),
+                admitted_work=None, extras=None):
+        count = int(bm.completed[i])
+        moved_units = float(bm.moved_units[i])
+        n_failures, n_joins, n_resizes = fault_counts
+        metrics = make_metrics(
+            arrived=count, completed=count,
+            makespan=float(bm.makespan[i]),
+            mean_response=float(bm.mean_response[i]),
+            p99_response=float(bm.p99_response[i]),
+            moved_units=moved_units,
+            moved_packets=moved_units * cfg.packets_per_unit,
+            trigger_evals=cfg.n_slots if cfg.rebalance else 0,
+            trigger_fires=int(bm.trigger_fires[i]),
+            restarts=0,
+            failures=n_failures,
+            joins=n_joins,
+            resizes=n_resizes,
+            # the fluid model preempts nothing and never loses progress
+            evictions=0, wasted_work=0.0,
+            admitted_work=admitted_work)
+        return RunResult(
+            fingerprint=scenario.fingerprint(), backend=self.name,
+            backend_options={
+                "model": "fluid", "dt": cfg.dt, "n_slots": cfg.n_slots,
+                **({"fifo_dispatch": True} if cfg.fifo_dispatch else {}),
+                # spec fields the fluid model has no analogue for: the
+                # trigger is evaluated every slot, migration is an instant
+                # redistribution (cost via packets_per_step), the
+                # positional rule runs flat (no hypergrid recursion), and
+                # nothing is engine-random
+                "ignored": ["policy.trigger_period", "cluster.bandwidth",
+                            "cluster.d", "engine_seed"]
+                + (["workload.m_tasks"]
+                   if scenario.workload.m_tasks is not None else [])
+                + list(extra_ignored),
+            },
+            metrics=metrics, extras=extras or {},
+            scenario_name=scenario.name)
+
+    def run(self, scenario, *, dt: float | None = None,
+            fifo_dispatch: bool = False, device=None, **options):
+        if options:
+            raise TypeError(f"batched backend options: dt, fifo_dispatch "
+                            f"and device only; got {sorted(options)}")
+        return self.run_many([scenario], dt=dt, fifo_dispatch=fifo_dispatch,
+                             device=device)[0]
+
+    def run_many(self, scenarios: list[Scenario],
+                 *, dt: float | None = None,
+                 fifo_dispatch: bool = False,
+                 device=None) -> list[RunResult]:
+        """The whole sweep as ONE ``simulate_batch`` call, on the CUDA
+        device unless ``device`` says otherwise."""
+        if not scenarios:
+            return []
+        # one representative check suffices: compile enforces that the
+        # rest differ only in seed/name, which eligibility never reads
+        self.check(scenarios[0])
+        dt = self.default_dt if dt is None else float(dt)
+        if dt <= 0:
+            raise BackendError(f"batched backend: dt must be > 0, got {dt}")
+        slot, works, powers, cfg, scale = self.compile(
+            scenarios, dt, fifo_dispatch=fifo_dispatch)
+        bm = simulate_batch(slot, works, powers, cfg, power_scale=scale,
+                            device=device)
+        # one resolution for the whole batch: compile() enforced that the
+        # scenarios share one fault schedule (only seed/name differ)
+        fault_counts = tuple(
+            len(evs) for evs in resolve_fault_schedule(scenarios[0]))
+        extra_ignored = []
+        obs = scenarios[0].obs
+        if obs is not None:
+            if obs.trace:
+                extra_ignored.append(
+                    "obs.trace (no per-task identity in the fluid model)")
+            if cfg.probe:
+                extra_ignored.append(
+                    "obs.probe_every cadence (fluid probes sample every "
+                    "slot, i.e. every dt)")
+        return [self._result(sc, bm, i, cfg, fault_counts, extra_ignored,
+                             admitted_work=float(works[i].sum()),
+                             extras={"obs": self._obs_extras(bm, i, cfg)}
+                             if cfg.probe else None)
+                for i, sc in enumerate(scenarios)]

@@ -1,0 +1,40 @@
+"""The port stands alone: importing every ``repro_torch`` module pulls in
+neither ``jax`` nor the JAX package, and builds no kernel."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+from repro_torch.kernels import _build
+print(json.dumps({
+    "modules": names,
+    "foreign": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "repro")),
+    "built": _build.BUILD_DIR.exists() and any(_build.BUILD_DIR.iterdir()),
+    "libs": len(_build._LIBS),
+}))
+"""
+
+
+def test_every_module_imports_without_jax_or_repro():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env, check=True,
+                         capture_output=True, text=True, timeout=300)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["foreign"] == []
+    assert report["libs"] == 0
+    for mod in ("repro_torch.lab.backends", "repro_torch.kernels.ops",
+                "repro_torch.runtime.vector_backend", "repro_torch.core.pslb",
+                "repro_torch.kernels.psts_dispatch"):
+        assert mod in report["modules"]
