@@ -20,6 +20,22 @@ Phases, each fatal on failure:
              under torch.profiler gives device time by kernel.
 4. small   — a small faulted run twice on the card: bit-identical, and equal
              to ``simulate_scalar`` per seed at rtol 1e-6.
+5. serve   — the second path: granite-moe-1b-a400m at full width (24
+             layers, bf16 compute, f32 params, bf16 KV cache, weights from
+             ``LM.init`` with a CUDA generator seeded 0) served through
+             ``repro_torch.launch.serve.serve``: 2 replicas on one
+             ReplicaScheduler, 8 slots each, max_len 4096, 32 requests with
+             prompt lengths uniform in 256..2048, 64 new tokens each, greedy.
+             The launch counters are zeroed just before and read just after
+             and must equal 24 flash launches per prefill call and 8 x 24
+             dispatch-positions launches per prefill call and decode step;
+             a second run must repeat every token; one more short run under
+             torch.profiler gives device time by kernel.
+6. serve-vs-plain — the same config with 2 layers in float32, the same
+             weights on the card and on the CPU (which runs the plain
+             versions): 4 right-padded prompts prefilled on each; last-token
+             logits within 1e-4 x max|logit| and every layer's routing equal
+             (see ``phase_serve_vs_plain``).
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -28,6 +44,7 @@ JSON result. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -41,7 +58,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import lab  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.sched import moe_dispatch  # noqa: E402
+from repro_torch.serve import Engine, GenRequest  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     VectorConfig,
     batch_slots,
@@ -59,10 +82,24 @@ SAMPLED_SEEDS = (0, 77)
 FIELDS = ("mean_response", "p99_response", "makespan", "trigger_fires",
           "moved_units", "completed")
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and non-tensor FP64 rate (the
-# kernels do float64 adds outside the tensor cores)
+# the serving path: granite-moe-1b-a400m at full width
+ARCH = "granite-moe-1b-a400m"
+SERVE_REQUESTS = 32
+SERVE_REPLICAS = 2
+SERVE_SLOTS = 8
+SERVE_MAX_LEN = 4096
+SERVE_NEW = 64
+PROMPT_LO, PROMPT_HI = 256, 2048
+BF16_TOL = 3e-2         # the JAX package's own kernel tolerances
+F32_TOL = 2e-5
+LOGIT_TOL = 1e-4        # x max|logit|, card vs CPU (phase 6)
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, non-tensor FP64 rate (the scan and
+# prefix kernels do float64 adds outside the tensor cores), dense bf16
+# tensor-core rate (what bounds attention's products)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+BF16_OPS_PER_S = 989e12
 
 
 def log(*args):
@@ -88,9 +125,28 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def device_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` per call: the kernels it launches, summed by
+    torch.profiler over ``reps`` calls after a warm-up. For a launch shorter
+    than its host-side issue time, where back-to-back CUDA events measure
+    the host, not the card."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(evt, "self_device_time_total", 0.0)
+                   for evt in prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / reps
+
+
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP64_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP64_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -243,8 +299,9 @@ def phase_sweep(base, cfg, powers, scale):
     if [r.backend for r in results] != ["batched"] * SEEDS:
         fail("the sweep did not auto-dispatch to the batched backend")
     want = {"prefix_scan": 1 + cfg.n_slots,
-            "dispatch_work_prefix": 1 + cfg.n_slots}
-    if any(launches[k] <= 0 for k in launches) or launches != want:
+            "dispatch_work_prefix": 1 + cfg.n_slots,
+            "dispatch_positions": 0, "flash_attention": 0}
+    if launches != want:
         fail(f"launch counts {launches}, expected {want}")
     tasks = sum(r["completed"] for r in results)
     for r in results:
@@ -291,14 +348,13 @@ def phase_repeat(results, tensors, cfg):
     return engine_s
 
 
-def phase_profile(tensors, cfg, engine_s):
-    """Where the engine's device time goes: one more full-width run under
-    torch.profiler, device time by kernel, and the busy share of the
-    unprofiled engine time."""
+def device_time_table(fn, wall_s: float, tag: str) -> None:
+    """Run ``fn`` once under torch.profiler; log device time by kernel and
+    its share of ``wall_s``, the same work's unprofiled wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _simulate_batch_torch(*tensors, cfg)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for evt in prof.key_averages():
@@ -307,14 +363,23 @@ def phase_profile(tensors, cfg, engine_s):
             rows.append((dev_us, evt.count, evt.key))
     total_us = sum(r[0] for r in rows)
     if total_us <= 0:
-        log("[profile] torch.profiler recorded no device time")
+        log(f"[{tag}] torch.profiler recorded no device time")
         return
-    log(f"[profile] device kernel time {total_us / 1e6:.3f}s = "
-        f"{100 * total_us / 1e6 / engine_s:.1f}% of the unprofiled engine "
-        f"time {engine_s:.2f}s (the rest: device idle)")
+    log(f"[{tag}] device kernel time {total_us / 1e6:.3f}s in "
+        f"{sum(r[1] for r in rows)} kernel launches = "
+        f"{100 * total_us / 1e6 / wall_s:.1f}% of the unprofiled time "
+        f"{wall_s:.2f}s (the rest: device idle)")
     for dev_us, count, key in sorted(rows, reverse=True)[:15]:
-        log(f"[profile]   {100 * dev_us / total_us:5.1f}%  "
+        log(f"[{tag}]   {100 * dev_us / total_us:5.1f}%  "
             f"{dev_us / 1e3:9.2f} ms  x{count:<5d} {key[:90]}")
+
+
+def phase_profile(tensors, cfg, engine_s):
+    """Where the engine's device time goes: one more full-width run under
+    torch.profiler, device time by kernel, and the busy share of the
+    unprofiled engine time."""
+    device_time_table(lambda: _simulate_batch_torch(*tensors, cfg), engine_s,
+                      "profile")
 
 
 def phase_small(dev):
@@ -345,12 +410,383 @@ def phase_small(dev):
         f"match simulate_scalar; fires {a.trigger_fires.tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# the serving path: flash attention and the expert-dispatch positions
+# ---------------------------------------------------------------------------
+
+def padded_positions(lengths, s: int, dev):
+    """(q_positions, kv_positions) of right-padded prompts, as prefill
+    passes them."""
+    pos = torch.arange(s, device=dev).expand(len(lengths), s)
+    lens = torch.as_tensor(np.asarray(lengths), device=dev)[:, None]
+    kv = torch.where(pos < lens, pos, -1).to(torch.int32)
+    return kv.clamp_min(0), kv
+
+
+def flash_check(label, b, h, kv, s, hd, dtype, g, dev, **kw):
+    """The kernel against its plain version; returns max|err| and the
+    inputs. ``lengths`` in ``kw`` selects the position form."""
+    q = torch.randn(b, h, s, hd, generator=g).to(dev, dtype)
+    k = torch.randn(b, kv, s, hd, generator=g).to(dev, dtype)
+    v = torch.randn(b, kv, s, hd, generator=g).to(dev, dtype)
+    lengths = kw.pop("lengths", None)
+    if lengths is not None:
+        kw["q_positions"], kw["kv_positions"] = padded_positions(lengths, s,
+                                                                 dev)
+    got = ops.flash_attention(q, k, v, **kw).float()
+    want = ref.flash_attention_ref(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    err = (got - want).abs()
+    log(f"[kernels] flash_attention {label} {(b, h, kv, s, hd)} "
+        f"{str(dtype)[6:]}: max|err|={err.max().item():.3e}")
+    if not bool((err <= tol + tol * want.abs()).all()):
+        fail(f"flash_attention {label}: error beyond {tol} (rtol and atol)")
+    return err.max().item(), (q, k, v, kw)
+
+
+def phase_kernels_lm(dev):
+    """flash_attention and dispatch_positions against their plain versions
+    at the serving path's shapes and at edges; times at the main path's
+    shapes. Returns their kernel records (launches filled in later)."""
+    g = torch.Generator().manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # -- flash: granite's prefill (B 8, H 16, KV 8, S 2048, hd 64, bf16),
+    # right-padded to the bucket as the serve phase's prompts are
+    lengths = np.random.default_rng(1).integers(PROMPT_LO, PROMPT_HI + 1,
+                                                size=8)
+    worst, (q, k, v, kw) = flash_check("serve prefill, padded", 8, 16, 8,
+                                       2048, 64, bf16, g, dev,
+                                       lengths=lengths)
+    for label, shape, dtype, extra in [
+            ("index form", (8, 16, 8, 2048, 64), bf16, {}),
+            ("S=1", (2, 16, 8, 1, 64), bf16, {}),
+            ("S=130", (2, 16, 8, 130, 64), bf16, {}),
+            ("S=4096", (1, 16, 8, 4096, 64), bf16, {}),
+            ("hd=128", (2, 8, 8, 300, 128), bf16, {}),
+            ("hd=256", (1, 8, 4, 300, 256), bf16, {}),
+            ("hd=256 f32", (1, 8, 4, 300, 256), f32, {}),
+            ("rep=1", (2, 8, 8, 256, 64), bf16, {}),
+            ("rep=16", (2, 16, 1, 256, 64), bf16, {}),
+            ("window", (2, 16, 8, 1000, 64), bf16, {"window": 256}),
+            ("soft-cap", (2, 16, 8, 500, 64), bf16, {"softcap": 50.0}),
+            ("f32", (2, 16, 8, 1024, 64), f32, {}),
+            ("f32 window+soft-cap", (2, 4, 2, 700, 64), f32,
+             {"window": 100, "softcap": 30.0}),
+            ("f32 padded", (4, 16, 8, 700, 64), f32,
+             {"lengths": [700, 1, 333, 64]}),
+            ("f32 padded window", (4, 16, 8, 700, 64), f32,
+             {"lengths": [700, 1, 333, 64], "window": 128})]:
+        flash_check(label, *shape, dtype, g, dev, **extra)
+    flash_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
+    flash_index_ms = time_ms(lambda: ops.flash_attention(q, k, v), 10)
+    flash_plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash_lib = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                     enable_gqa=True), 10)
+    b, h, s, hd = q.shape
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    # what these prompts need: causal over the real tokens, one key for
+    # each padded query
+    pairs = sum(int(n) * (int(n) + 1) // 2 + (s - int(n)) for n in lengths)
+    f_bound, f_by = bound_ms(n_bytes, 4 * h * hd * pairs, BF16_OPS_PER_S)
+    log(f"[kernels] flash_attention index form at the same shape: "
+        f"{flash_index_ms:.4f} ms (causal over all {s} positions)")
+    flash = dict(name="flash_attention", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:93",
+                 max_abs_err=worst, ms=flash_ms, plain_ms=flash_plain,
+                 bound_ms=f_bound, bound_by=f_by, library_ms=flash_lib,
+                 shape=[b, h, k.shape[1], s, hd])
+
+    # -- dispatch positions: one priority slot of granite's prefill (8
+    # groups x 2048 tokens, E = 32) and of its decode (8 x 1), and edges
+    cases = []
+    for label, r, t, e, frac, base_hi in [
+            ("prefill slot (8, 2048), E=32", 8, 2048, 32, 1.0, 0),
+            ("decode slot (8, 1), E=32", 8, 1, 32, 1.0, 0),
+            ("non-zero base", 8, 2048, 32, 1.0, 100),
+            ("E=1", 4, 3000, 1, 0.8, 3), ("E=128", 4, 3000, 128, 0.9, 3),
+            ("E=300", 4, 3000, 300, 0.7, 5), ("all -1", 3, 500, 32, 0.0, 4)]:
+        idx = torch.randint(0, e, (r, t), generator=g, dtype=torch.int32)
+        keep = torch.rand(r, t, generator=g) < frac
+        idx = torch.where(keep, idx, torch.full_like(idx, -1)).to(dev)
+        base = torch.randint(0, base_hi + 1, (r, e), generator=g,
+                             dtype=torch.int32).to(dev)
+        gp, gf = ops.dispatch_positions(idx, base, e)
+        wp, wf = ref.dispatch_positions_ref(idx, base, e)
+        torch.cuda.synchronize()
+        same = torch.equal(gp, wp) and torch.equal(gf, wf)
+        log(f"[kernels] dispatch_positions {label} {(r, t)}: "
+            f"{'exact' if same else 'DIFFERS'}")
+        if not same:
+            fail(f"dispatch_positions {label}: differs from the plain version")
+        cases.append((idx, base, e))
+    idx, base, e = cases[0]
+    # a launch is shorter than its issue time: time the card by the
+    # profiler, and show the event-timed issue rate beside it
+    pos_issue = time_ms(lambda: ops.dispatch_positions(idx, base, e), 100)
+    plain_issue = time_ms(lambda: ref.dispatch_positions_ref(idx, base, e),
+                          20)
+    pos_ms = device_ms(lambda: ops.dispatch_positions(idx, base, e), 100)
+    pos_plain = device_ms(lambda: ref.dispatch_positions_ref(idx, base, e),
+                          20)
+    log(f"[kernels] dispatch_positions back-to-back by CUDA events (host "
+        f"issue-bound): kernel {pos_issue:.4f} ms, plain {plain_issue:.4f} "
+        f"ms per call")
+    r, t = idx.shape
+    p_bound, p_by = bound_ms(2 * 4 * r * t + 2 * 4 * r * e, 0)
+    positions = dict(name="dispatch_positions", route="cuda",
+                     source="src/repro_torch/kernels/csrc/psts_dispatch.cu",
+                     replaces="src/repro/kernels/psts_dispatch.py:46",
+                     max_abs_err=0.0, ms=pos_ms, plain_ms=pos_plain,
+                     bound_ms=p_bound, bound_by=p_by, library_ms=None,
+                     shape=[r, t, e])
+    for rec in (flash, positions):
+        log(f"[kernels] {rec['name']} at {rec['shape']}: {rec['ms']:.4f} "
+            f"ms, plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']}, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']})")
+    return [flash, positions]
+
+
+class Counted:
+    """Counts an LM's prefill calls and decode steps and times each call
+    between two synchronisations (instance attributes shadow the methods
+    that the engines call)."""
+
+    def __init__(self, lm):
+        self.lm = lm
+        self.calls = {"prefill": 0, "decode": 0}
+        self.seconds = {"prefill": 0.0, "decode": 0.0}
+        self.prefill_tokens = 0
+        self._methods = {"prefill": lm.prefill, "decode": lm.decode_step}
+        lm.prefill = self._wrap("prefill")
+        lm.decode_step = self._wrap("decode")
+
+    def _wrap(self, kind):
+        method = self._methods[kind]
+
+        def call(cache, tokens, lengths):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = method(cache, tokens, lengths)
+            torch.cuda.synchronize()
+            self.seconds[kind] += time.perf_counter() - t0
+            self.calls[kind] += 1
+            if kind == "prefill":
+                self.prefill_tokens += int(np.sum(lengths))
+            return out
+        return call
+
+    def restore(self):
+        del self.lm.prefill, self.lm.decode_step
+
+
+def serve_prompts(cfg):
+    rng = np.random.default_rng(0)
+    lens = rng.integers(PROMPT_LO, PROMPT_HI + 1, size=SERVE_REQUESTS)
+    return [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+            for n in lens]
+
+
+def run_serve(lm, prompts):
+    return serve(lm, prompts, max_new=SERVE_NEW, slots=SERVE_SLOTS,
+                 max_len=SERVE_MAX_LEN, replicas=SERVE_REPLICAS)
+
+
+def phase_serve(dev):
+    """The serving path at full width through launch.serve's entry
+    function; returns (lm, prompts, launches)."""
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    lm.weights()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"[serve] {ARCH}: {n_params} parameters ({cfg.param_dtype}), "
+        f"compute {cfg.dtype}, KV cache {cfg.kv_cache_dtype}; init on the "
+        f"card in {time.perf_counter() - t0:.2f}s")
+    prompts = serve_prompts(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    counted = Counted(lm)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, done, sched = run_serve(lm, prompts)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    counted.restore()
+    peak = torch.cuda.max_memory_allocated()
+    n_pre, n_dec = counted.calls["prefill"], counted.calls["decode"]
+    n_moe = cfg.n_layers  # every granite layer is MoE
+    want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
+            "flash_attention": cfg.n_layers * n_pre,
+            "dispatch_positions": cfg.experts_per_token * n_moe
+            * (n_pre + n_dec)}
+    log(f"[serve] {len(done)} of {SERVE_REQUESTS} requests finished; "
+        f"{n_pre} prefill calls, {n_dec} decode steps; launches {launches}")
+    if launches != want or min(want["flash_attention"],
+                               want["dispatch_positions"]) <= 0:
+        fail(f"serve launch counts {launches}, expected {want}")
+    if len(done) != SERVE_REQUESTS or summary["finished"] != SERVE_REQUESTS:
+        fail(f"{len(done)} of {SERVE_REQUESTS} requests finished")
+    tokens = {r.rid: list(r.generated) for r in done}
+    if any(len(t) != SERVE_NEW for t in tokens.values()):
+        fail("a request stopped before its max_new tokens")
+    if any(not 0 <= x < cfg.vocab_padded for t in tokens.values()
+           for x in t):
+        fail("a generated token lies outside the vocabulary")
+    gen = sum(len(t) for t in tokens.values())
+    dec_tokens = gen - len(done)   # each request's first token: prefill
+    log(f"[serve] wall {wall:.3f}s for {gen} generated tokens "
+        f"({gen / wall:.1f} tok/s); prefill {counted.prefill_tokens} prompt "
+        f"tokens in {counted.seconds['prefill']:.3f}s "
+        f"({counted.prefill_tokens / counted.seconds['prefill']:.1f} tok/s);"
+        f" decode {dec_tokens} tokens in {counted.seconds['decode']:.3f}s "
+        f"({dec_tokens / counted.seconds['decode']:.1f} tok/s, "
+        f"{1e3 * counted.seconds['decode'] / n_dec:.2f} ms/step); peak "
+        f"device memory {peak / 2**30:.2f} GiB; replica loads "
+        f"{summary['replica_loads']}; CLI record {json.dumps(summary)}")
+
+    t0 = time.perf_counter()
+    _, again, _ = run_serve(lm, prompts)
+    if {r.rid: list(r.generated) for r in again} != tokens:
+        fail("a second serving run generated other tokens")
+    log(f"[serve] second run repeats all {gen} tokens "
+        f"({time.perf_counter() - t0:.2f}s)")
+    return lm, prompts, launches
+
+
+def phase_serve_profile(lm, prompts):
+    """Device time by kernel over a short serving run: one engine, the
+    first 8 prompts, 8 new tokens each (one prefill call, 7 decode
+    steps)."""
+    def short():
+        Engine(lm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN).run(
+            [GenRequest(i, p, 8) for i, p in enumerate(prompts[:8])])
+        torch.cuda.synchronize()
+    short()
+    t0 = time.perf_counter()
+    short()
+    wall = time.perf_counter() - t0
+    device_time_table(short, wall, "serve-profile")
+
+
+def phase_serve_vs_plain(dev):
+    """The whole serving path's kernels against their plain versions: the
+    full-width config cut to 2 layers, in float32, with the same weights on
+    the card and on the CPU; 4 right-padded prompts prefilled on each.
+
+    Checks: (a) every layer's routing on the card equals the plain dispatch
+    run on the card's own router logits, exactly; (b) the router logits and
+    the last-token logits of the two devices agree within 1e-4 x max|value|
+    (float32 on both; sums in other orders over 1024-wide products and a
+    49,408-wide vocabulary); (c) the routing of the two devices is equal,
+    unless a prompt's top-k order differs at a near tie (a gap below 1e-4
+    between two of its top-(k+1) router logits), which float rounding may
+    decide either way: such a prompt is reported and left out of (b)'s
+    last-token check."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32",
+                              kv_cache_dtype="float32")
+    card = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    host = LM(cfg, device="cpu")
+    host.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    rng = np.random.default_rng(2)
+    lens = rng.integers(100, 513, size=4).astype(np.int32)
+    toks = np.zeros((4, 512), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, size=n)
+
+    calls = []
+    plain_dispatch = moe_mod.dispatch_grouped
+
+    def recording(logits, **kw):
+        res = plain_dispatch(logits, **kw)
+        calls.append((logits, kw, res))
+        return res
+    moe_mod.dispatch_grouped = recording
+    try:
+        t0 = time.perf_counter()
+        logit_card, _ = card.prefill(card.init_cache(4, 512), toks, lens)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        on_card, calls[:] = list(calls), []
+        t0 = time.perf_counter()
+        logit_host, _ = host.prefill(host.init_cache(4, 512), toks, lens)
+        t_host = time.perf_counter() - t0
+        on_host = list(calls)
+    finally:
+        moe_mod.dispatch_grouped = plain_dispatch
+    if len(on_card) != cfg.n_layers or len(on_host) != cfg.n_layers:
+        fail("the 2-layer prefill did not dispatch once per layer")
+
+    fields = ("expert_idx", "slot_idx", "keep")
+    k = cfg.experts_per_token
+    diverged = set()
+    for layer, ((lc, kw, rc), (lh, _, rh)) in enumerate(zip(on_card,
+                                                            on_host)):
+        # (a) the positions kernel inside the dispatch, against the plain
+        # dispatch on the same router logits
+        plain = moe_dispatch.dispatch_grouped(lc.cpu(), **kw)
+        for f in fields:
+            if not torch.equal(getattr(rc, f).cpu(), getattr(plain, f)):
+                fail(f"layer {layer}: card routing {f} differs from the "
+                     f"plain dispatch on the same router logits")
+        # (b) router logits
+        lc = lc.cpu()
+        r_err = (lc - lh).abs().max().item() / lh.abs().max().item()
+        if not r_err <= LOGIT_TOL:
+            fail(f"layer {layer}: router logits differ by {r_err:.3e} x max")
+        # (c) routing across devices
+        same = [all(torch.equal(getattr(rc, f)[gi].cpu(), getattr(rh, f)[gi])
+                    for f in fields) for gi in range(len(lens))]
+        top = torch.topk(lh, k + 1, dim=-1)
+        gaps = (top.values[..., :-1] - top.values[..., 1:]).min(-1).values
+        flipped = (torch.topk(lc, k, dim=-1).indices
+                   != top.indices[..., :k]).any(-1)
+        for gi in range(len(lens)):
+            if same[gi]:
+                continue
+            if not flipped[gi].any():
+                fail(f"layer {layer} prompt {gi}: routing differs with the "
+                     f"same top-k choices")
+            gap = gaps[gi][flipped[gi]].max().item()
+            if not gap < 1e-4:
+                fail(f"layer {layer} prompt {gi}: top-k differs at a gap "
+                     f"of {gap:.3e}, not a near tie")
+            diverged.add(gi)
+            log(f"[serve-vs-plain] layer {layer} prompt {gi}: top-k order "
+                f"decided by a near tie (gap {gap:.2e}); left out of the "
+                f"logits check")
+        log(f"[serve-vs-plain] layer {layer}: routing equal to the plain "
+            f"dispatch on the card's logits; router logits within "
+            f"{r_err:.2e} x max; prompts routed alike on both devices: "
+            f"{sum(same)}/{len(lens)}")
+    keep_rows = [i for i in range(len(lens)) if i not in diverged]
+    if not keep_rows:
+        fail("every prompt diverged at a near tie; nothing left to compare")
+    lc, lh = logit_card.cpu()[keep_rows], logit_host[keep_rows]
+    err = (lc - lh).abs().max().item() / lh.abs().max().item()
+    if not err <= LOGIT_TOL:
+        fail(f"last-token logits differ by {err:.3e} x max|logit|")
+    if not torch.equal(lc.argmax(-1), lh.argmax(-1)):
+        fail("the greedy next tokens differ between the card and the CPU")
+    log(f"[serve-vs-plain] {ARCH} x 2 layers f32, prompts {lens.tolist()} "
+        f"(bucket 512): last-token logits within {err:.3e} x max|logit| "
+        f"on {len(keep_rows)} prompts, same greedy tokens; prefill {t_card:.3f}s "
+        f"on the card, {t_host:.3f}s on the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
               file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    # float32 products in full float32 on the card (TF32 off), as the plain
+    # versions and the CPU compute them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -374,14 +810,23 @@ def main() -> int:
     del slot, works
 
     kernels = phase_kernels(dev, tensors[0], tensors[1], cfg)
+    kernels += phase_kernels_lm(dev)
     results, launches = phase_sweep(base, cfg, powers, scale)
-    for k in kernels:
+    for k in kernels[:2]:
         k["launches"] = launches[k["name"]]
     engine_s = phase_repeat(results, tensors, cfg)
     phase_profile(tensors, cfg, engine_s)
-    del tensors
+    del tensors, results
     torch.cuda.empty_cache()
     phase_small(dev)
+
+    lm, prompts, launches = phase_serve(dev)
+    for k in kernels[2:]:
+        k["launches"] = launches[k["name"]]
+    phase_serve_profile(lm, prompts)
+    del lm
+    torch.cuda.empty_cache()
+    phase_serve_vs_plain(dev)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -4,7 +4,11 @@ one by the tensor's device:
 
   prefix_scan   — the paper's scan operator, one block per row with the
                   row total carried in a register
-  psts_dispatch — the FIFO dispatch prefix, one accumulator per destination
+  psts_dispatch — the FIFO dispatch prefix, one accumulator per destination,
+                  and the MoE expert-dispatch positions, one counter per
+                  expert, a block per token group
+  flash_attention — causal GQA online-softmax attention, a block per
+                  (batch, head, 64-query tile) walking its KV tiles
 """
 
 from . import ops, ref

@@ -9,12 +9,13 @@ from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _flash
 from . import prefix_scan as _scan
 from . import psts_dispatch as _dispatch
 from . import ref
 
-__all__ = ["prefix_scan", "dispatch_work_prefix", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["prefix_scan", "dispatch_work_prefix", "dispatch_positions",
+           "flash_attention", "launch_counts", "reset_launch_counts"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -42,12 +43,40 @@ def dispatch_work_prefix(expert_idx: torch.Tensor, weights: torch.Tensor,
     return ref.dispatch_work_prefix_ref(expert_idx, weights, n_experts)
 
 
+def dispatch_positions(expert_idx: torch.Tensor, base: torch.Tensor,
+                       n_experts: int):
+    """``(pos (R, T), fill (R, E))`` int32: per row, each token's exclusive
+    position within its expert counted from ``base`` (R, E), and the fills
+    including ``base``; -1 (or any out-of-range expert) means none."""
+    if _on_cuda(expert_idx):
+        return _dispatch.dispatch_positions_cuda(expert_idx, base, n_experts)
+    return ref.dispatch_positions_ref(expert_idx, base, n_experts)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    q_positions=None, kv_positions=None):
+    """Attention of q (B, H, S, hd) over k, v (B, KV, S, hd), output in
+    ``q.dtype``: the index mask, or with ``q_positions``/``kv_positions``
+    (B, S) the model's position mask (see ``ref.flash_attention_ref``)."""
+    if _on_cuda(q):
+        return _flash.flash_attention_cuda(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_positions=q_positions, kv_positions=kv_positions)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_positions=q_positions,
+                                   kv_positions=kv_positions)
+
+
 def launch_counts() -> dict[str, int]:
     """CUDA launches of each kernel in this process."""
     return {"prefix_scan": _scan.LAUNCHES,
-            "dispatch_work_prefix": _dispatch.LAUNCHES}
+            "dispatch_work_prefix": _dispatch.LAUNCHES,
+            "dispatch_positions": _dispatch.POSITION_LAUNCHES,
+            "flash_attention": _flash.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _scan.LAUNCHES = 0
     _dispatch.LAUNCHES = 0
+    _dispatch.POSITION_LAUNCHES = 0
+    _flash.LAUNCHES = 0

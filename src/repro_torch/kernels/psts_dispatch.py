@@ -1,15 +1,22 @@
-"""Hand-written CUDA kernel: the FIFO dispatch prefix in float64. Source:
-``csrc/psts_dispatch.cu``, which replaces
-``repro/kernels/psts_dispatch.py::dispatch_work_prefix_pallas``.
+"""Hand-written CUDA kernels of PSTS dispatch. Source:
+``csrc/psts_dispatch.cu``, one shared library with two kernels:
 
-The Pallas kernel keeps a (block, 128) one-hot in VMEM and so rejects more
-than 128 destinations, the TPU's lane width. The CUDA kernel keeps one
-accumulator per destination and takes any count: the batched engine calls it
-with one destination per cluster node (12,500 at full width).
-``dispatch_positions_pallas`` (the unweighted variant) is not on this path
-and is not ported yet.
+- ``dispatch_work_prefix_cuda`` — the FIFO dispatch prefix in float64, which
+  replaces ``repro/kernels/psts_dispatch.py::dispatch_work_prefix_pallas``
+  (the batched engine's path);
+- ``dispatch_positions_cuda`` — the MoE expert-dispatch positions in int32,
+  which replaces ``repro/kernels/psts_dispatch.py::dispatch_positions_pallas``
+  (the LM's path: ``sched/moe_dispatch.py::_positions_scan``).
 
-``LAUNCHES`` counts the kernel's launches in this process.
+The Pallas kernels keep a (block, 128) one-hot in VMEM and so reject more
+than 128 destinations, the TPU's lane width, and the positions kernel takes
+one token row. The CUDA kernels keep one counter per destination and take
+any count (the batched engine calls the prefix with one destination per
+cluster node, 12,500 at full width), and the positions kernel takes a batch
+of rows (the MoE layer's token groups).
+
+``LAUNCHES`` and ``POSITION_LAUNCHES`` count each kernel's launches in this
+process.
 """
 
 from __future__ import annotations
@@ -20,9 +27,11 @@ import torch
 
 from . import _build
 
-__all__ = ["dispatch_work_prefix_cuda", "LAUNCHES"]
+__all__ = ["dispatch_work_prefix_cuda", "dispatch_positions_cuda",
+           "LAUNCHES", "POSITION_LAUNCHES"]
 
 LAUNCHES = 0
+POSITION_LAUNCHES = 0
 
 _SIGNATURES = {
     "dispatch_work_prefix_f64": [ctypes.c_void_p, ctypes.c_void_p,
@@ -30,6 +39,11 @@ _SIGNATURES = {
                                  ctypes.c_int64, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_int,
                                  ctypes.c_void_p],
+    "dispatch_positions_i32": [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int64, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_void_p],
 }
 
 
@@ -71,3 +85,43 @@ def dispatch_work_prefix_cuda(expert_idx: torch.Tensor, weights: torch.Tensor,
     _build.check("psts_dispatch", "dispatch_work_prefix", err)
     LAUNCHES += 1
     return prefix, fill
+
+
+def dispatch_positions_cuda(expert_idx: torch.Tensor, base: torch.Tensor,
+                            n_experts: int):
+    """``expert_idx`` (R, T) int32 expert per token (outside ``[0,
+    n_experts)`` = none), ``base`` (R, n_experts) int32 prior fills, both
+    contiguous on one CUDA device. Returns ``(pos (R, T), fill (R,
+    n_experts))`` int32: each token's exclusive position within its expert
+    counted from ``base`` (0 for a token without one), and the fills
+    including ``base``. Exact."""
+    global POSITION_LAUNCHES
+    if expert_idx.device.type != "cuda" or base.device != expert_idx.device:
+        raise ValueError(f"dispatch_positions_cuda needs both tensors on one "
+                         f"CUDA device, got {expert_idx.device} and "
+                         f"{base.device}")
+    if expert_idx.dtype != torch.int32 or base.dtype != torch.int32:
+        raise TypeError(f"dispatch_positions_cuda takes int32 experts and "
+                        f"base, got {expert_idx.dtype} and {base.dtype}")
+    if n_experts < 1:
+        raise ValueError(f"n_experts must be >= 1, got {n_experts}")
+    if expert_idx.dim() != 2 or base.shape != (expert_idx.shape[0],
+                                               n_experts):
+        raise ValueError(f"expert_idx must be (R, T) and base (R, "
+                         f"{n_experts}), got {tuple(expert_idx.shape)} and "
+                         f"{tuple(base.shape)}")
+    if not (expert_idx.is_contiguous() and base.is_contiguous()):
+        raise ValueError("dispatch_positions_cuda needs contiguous tensors")
+    r, t = expert_idx.shape
+    pos = torch.empty_like(expert_idx)
+    fill = torch.empty_like(base)
+    if r == 0:
+        return pos, fill
+    lib = _build.load("psts_dispatch", _SIGNATURES)
+    err = lib.dispatch_positions_i32(
+        expert_idx.data_ptr(), base.data_ptr(), pos.data_ptr(),
+        fill.data_ptr(), r, t, n_experts, expert_idx.device.index,
+        _build.stream_of(expert_idx))
+    _build.check("psts_dispatch", "dispatch_positions", err)
+    POSITION_LAUNCHES += 1
+    return pos, fill

@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["prefix_scan_ref", "dispatch_work_prefix_ref"]
+__all__ = ["prefix_scan_ref", "dispatch_work_prefix_ref",
+           "dispatch_positions_ref", "flash_attention_ref"]
+
+_NEG = -2.0 ** 30  # the attention mask value, as in the JAX package
 
 
 def prefix_scan_ref(x: torch.Tensor) -> torch.Tensor:
@@ -73,3 +76,65 @@ def dispatch_work_prefix_ref(expert_idx: torch.Tensor, weights: torch.Tensor,
         last[:-1] = k_s[1:] != k_s[:-1]
         fill[k_s[last]] = inc[last]
     return prefix, fill[:r * e].reshape(r, e)
+
+
+def dispatch_positions_ref(expert_idx: torch.Tensor, base: torch.Tensor,
+                           n_experts: int):
+    """Per row: each token's exclusive position within its expert, counted
+    from ``base`` prior fills, and the fills after the row.
+
+    ``expert_idx`` (R, T) integer experts (outside ``[0, n_experts)``, e.g.
+    -1, means none: position 0, counts nowhere), ``base`` (R, E). Returns
+    ``(pos (R, T), fill (R, E))`` in int32, ``fill`` including ``base``.
+    Row r is ``repro.kernels.ref.dispatch_positions_ref`` of row r: the
+    one-hot exclusive cumsum, batched over rows.
+    """
+    e = int(n_experts)
+    valid = (expert_idx >= 0) & (expert_idx < e)
+    idx = torch.where(valid, expert_idx.long(), torch.zeros_like(
+        expert_idx, dtype=torch.long))
+    onehot = (torch.nn.functional.one_hot(idx, e).to(torch.int32)
+              * valid.unsqueeze(-1))                      # (R, T, E)
+    cum = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    base = base.to(torch.int32)
+    pos = ((cum + base.unsqueeze(1)) * onehot).sum(-1, dtype=torch.int32)
+    fill = base + onehot.sum(1, dtype=torch.int32)
+    return pos, fill
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
+                        q_positions=None, kv_positions=None):
+    """Full-materialisation attention, in float32, output in ``q.dtype``.
+
+    q (B, H, S, hd); k, v (B, KV, S, hd) with H % KV == 0 (query head h
+    reads KV head h // (H // KV)). Without positions this is
+    ``repro.kernels.ref.flash_attention_ref``: the mask is by index (causal
+    ``i >= j``, window ``i - j < window``). With ``q_positions`` (B, S) and
+    ``kv_positions`` (B, S) int it is the model's mask
+    (``repro.models.attention.chunked_attention``): key j is seen by query i
+    iff ``kv_pos[j] >= 0`` and, causal, ``q_pos[i] >= kv_pos[j]`` and, with a
+    window, ``q_pos[i] - kv_pos[j] < window``. Masked logits are -2**30.
+    """
+    b, h, s, hd = q.shape
+    rep = h // k.shape[1]
+    kf = k.repeat_interleave(rep, dim=1).float()
+    vf = v.repeat_interleave(rep, dim=1).float()
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) * hd ** -0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    if q_positions is None:
+        idx = torch.arange(s, device=q.device)
+        q_pos, kv_pos = idx.expand(b, s), idx.expand(b, s)
+    else:
+        q_pos, kv_pos = q_positions, kv_positions
+    qp = q_pos[:, None, :, None]
+    kp = kv_pos[:, None, None, :]
+    mask = kp >= 0
+    if causal:
+        mask = mask & (qp >= kp)
+    if window is not None:
+        mask = mask & ((qp - kp) < window)
+    logits = torch.where(mask, logits, torch.full((), _NEG,
+                                                  device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", w, vf).to(q.dtype)

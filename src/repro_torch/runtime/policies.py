@@ -17,8 +17,8 @@ new task lands at the midpoint of the deficit intervals computed from the
 load and power scans — no global reshuffle.
 
 The policies decide for the event engine, which a later slice of the port
-brings; in this slice the batched backend reads ``PstsPolicy``'s cost
-constants and defaults.
+brings; so far the batched backend reads ``PstsPolicy``'s cost constants and
+defaults, and ``sched.request_sched`` registers ``"replica"``.
 """
 
 from __future__ import annotations
@@ -109,10 +109,9 @@ def register(name: str):
 def make_policy(spec: str | Policy, **kwargs) -> Policy:
     if isinstance(spec, Policy):
         return spec
-    if spec == "replica":
-        raise NotImplementedError(
-            "the 'replica' policy is the serving request scheduler of "
-            "sched/, which a later slice of the port brings")
+    if spec == "replica" and spec not in POLICIES:
+        # the serving request scheduler registers itself on import
+        from ..sched import request_sched  # noqa: F401
     if spec not in POLICIES:
         raise ValueError(f"unknown policy {spec!r}; have {sorted(POLICIES)}")
     return POLICIES[spec](**kwargs)

@@ -102,5 +102,8 @@ def test_metrics_and_policy_defaults_match():
     powers = np.array([2.0, 1.0, 3.0, 1.0])
     assert policies.positional_arrival(loads, powers, 3.0) == \
         jpol.positional_arrival(loads, powers, 3.0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        policies.make_policy("replica")
+    # the serving request scheduler registers "replica" on first use
+    rep, jrep = policies.make_policy("replica"), jpol.make_policy("replica")
+    assert type(rep).__name__ == type(jrep).__name__ == \
+        "RequestSchedulerPolicy"
+    assert rep.__dict__ == jrep.__dict__

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 PROBE = r"""
@@ -27,14 +29,36 @@ print(json.dumps({
 """
 
 
-def test_every_module_imports_without_jax_or_repro():
+@pytest.fixture(scope="module")
+def report():
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, check=True,
                          capture_output=True, text=True, timeout=300)
-    report = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_every_module_imports_without_jax_or_repro(report):
     assert report["foreign"] == []
     assert report["libs"] == 0
     for mod in ("repro_torch.lab.backends", "repro_torch.kernels.ops",
                 "repro_torch.runtime.vector_backend", "repro_torch.core.pslb",
                 "repro_torch.kernels.psts_dispatch"):
         assert mod in report["modules"]
+
+
+def test_serving_subpackages_import_without_jax_or_repro(report):
+    """The serving slice's subpackages, module by module."""
+    assert report["foreign"] == []
+    assert report["libs"] == 0
+    for sub, mods in {
+            "configs": ("base", "granite_moe_1b", "olmo_1b"),
+            "models": ("common", "mlp", "attention", "moe", "model",
+                       "convert"),
+            "sched": ("moe_dispatch", "request_sched"),
+            "serve": ("engine",),
+            "launch": ("serve",),
+            "kernels": ("flash_attention",),
+            "core": ("psts",)}.items():
+        assert f"repro_torch.{sub}" in report["modules"]
+        for mod in mods:
+            assert f"repro_torch.{sub}.{mod}" in report["modules"]
