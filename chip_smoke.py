@@ -36,6 +36,29 @@ Phases, each fatal on failure:
              versions): 4 right-padded prompts prefilled on each; last-token
              logits within 1e-4 x max|logit| and every layer's routing equal
              (see ``phase_serve_vs_plain``).
+7. kernels (mamba) — the selective-scan kernel against its plain version on
+             the card at falcon-mamba-7b's prefill shape (4, 2048, 16, 8192)
+             and at edges (S = 1, S = 130, di = 36 and 256, bf16 inputs,
+             padded rows), rtol and atol 1e-4; times.
+8. falcon-serve — the third path: falcon-mamba-7b at full width and depth
+             (64 Mamba layers, d_model 4096, f32 params, bf16 compute and SSM
+             state, weights from ``LM.init`` with a CUDA generator seeded 0)
+             served through ``repro_torch.launch.serve.serve``: 2 replicas, 4
+             slots each, max_len 4096, 16 requests with prompt lengths
+             uniform in 256..2048, 32 new tokens each, greedy. Launch
+             counters zeroed just before and read just after: 64 scan
+             launches per prefill call, none per decode step, none of the
+             other kernels; a second run repeats every token; peak memory
+             under 80 GB; a short profiled run.
+9. falcon-vs-plain — falcon-mamba-7b cut to 2 layers in float32, the same
+             weights on the card and the CPU: 4 right-padded prompts of
+             100-512 tokens prefilled, then 4 decode steps; last-token logits
+             within 1e-4 x max|logit| at each step, the SSM state and conv
+             tail after prefill within 1e-4 x max.
+10. hybrid-vs-plain — jamba-v0.1-52b's smoke config (8 sub-layers: 7 Mamba,
+             1 attention, 4 MoE) in float32 on the card and the CPU: the
+             same logits check, every MoE sub-layer's routing equal, and the
+             card's launch counts show all three LM kernels.
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -90,6 +113,15 @@ SERVE_SLOTS = 8
 SERVE_MAX_LEN = 4096
 SERVE_NEW = 64
 PROMPT_LO, PROMPT_HI = 256, 2048
+# the third path: falcon-mamba-7b at full width
+SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "jamba-v0.1-52b"
+SSM_REQUESTS = 16
+SSM_SLOTS = 4
+SSM_NEW = 32
+SSM_DECODE_STEPS = 4    # falcon-vs-plain
+SCAN_TOL = 1e-4         # the JAX package's mamba_scan tolerance
+MEMORY_LIMIT = 80e9
 BF16_TOL = 3e-2         # the JAX package's own kernel tolerances
 F32_TOL = 2e-5
 LOGIT_TOL = 1e-4        # x max|logit|, card vs CPU (phase 6)
@@ -100,6 +132,7 @@ LOGIT_TOL = 1e-4        # x max|logit|, card vs CPU (phase 6)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12  # non-tensor float32 (the scan's fma)
 
 
 def log(*args):
@@ -300,7 +333,7 @@ def phase_sweep(base, cfg, powers, scale):
         fail("the sweep did not auto-dispatch to the batched backend")
     want = {"prefix_scan": 1 + cfg.n_slots,
             "dispatch_work_prefix": 1 + cfg.n_slots,
-            "dispatch_positions": 0, "flash_attention": 0}
+            "dispatch_positions": 0, "flash_attention": 0, "mamba_scan": 0}
     if launches != want:
         fail(f"launch counts {launches}, expected {want}")
     tasks = sum(r["completed"] for r in results)
@@ -583,9 +616,9 @@ class Counted:
         del self.lm.prefill, self.lm.decode_step
 
 
-def serve_prompts(cfg):
+def serve_prompts(cfg, n=SERVE_REQUESTS):
     rng = np.random.default_rng(0)
-    lens = rng.integers(PROMPT_LO, PROMPT_HI + 1, size=SERVE_REQUESTS)
+    lens = rng.integers(PROMPT_LO, PROMPT_HI + 1, size=n)
     return [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
             for n in lens]
 
@@ -619,7 +652,7 @@ def phase_serve(dev):
     peak = torch.cuda.max_memory_allocated()
     n_pre, n_dec = counted.calls["prefill"], counted.calls["decode"]
     n_moe = cfg.n_layers  # every granite layer is MoE
-    want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
+    want = {"prefix_scan": 0, "dispatch_work_prefix": 0, "mamba_scan": 0,
             "flash_attention": cfg.n_layers * n_pre,
             "dispatch_positions": cfg.experts_per_token * n_moe
             * (n_pre + n_dec)}
@@ -777,6 +810,274 @@ def phase_serve_vs_plain(dev):
         f"on the card, {t_host:.3f}s on the CPU")
 
 
+# ---------------------------------------------------------------------------
+# the third path: falcon-mamba-7b and the selective-scan kernel
+# ---------------------------------------------------------------------------
+
+def scan_check(label, shape, dtype, g, dev, *, lengths=None):
+    """The scan kernel against its plain version; returns max|err| and the
+    inputs. ``lengths`` right-pads each row (da = 1, dbx = 0)."""
+    b, s, n, di = shape
+    da = (torch.rand(shape, generator=g, device=dev) * 0.5 + 0.5).to(dtype)
+    dbx = torch.randn(shape, generator=g, device=dev).to(dtype)
+    if lengths is not None:
+        pad = (torch.arange(s, device=dev)[None, :]
+               >= torch.as_tensor(lengths, device=dev)[:, None])
+        da[pad] = 1.0
+        dbx[pad] = 0.0
+    got = ops.mamba_scan(da, dbx)
+    want = ref.mamba_scan_ref(da, dbx)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    worst = err.max().item()
+    del got
+    log(f"[kernels] mamba_scan {label} {shape} {str(dtype)[6:]}: "
+        f"max|err|={worst:.3e}")
+    if not bool((err <= SCAN_TOL + SCAN_TOL * want.abs()).all()):
+        fail(f"mamba_scan {label}: error beyond {SCAN_TOL} (rtol and atol)")
+    if lengths is not None:
+        last = want[torch.arange(b, device=dev),
+                    torch.as_tensor(lengths, device=dev) - 1]
+        if not torch.equal(want[:, -1], last):
+            fail(f"mamba_scan {label}: padding did not carry the state")
+    return worst, (da, dbx)
+
+
+def phase_kernels_mamba(dev):
+    """The scan kernel against its plain version at falcon-mamba-7b's
+    prefill shape and at edges; times at the prefill shape. Returns its
+    kernel record (launches filled in later)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, shape, dtype, extra in [
+            ("S=1", (2, 1, 16, 8192), f32, {}),
+            ("S=130", (2, 130, 16, 256), f32, {}),
+            ("di=36 (one channel a thread)", (3, 70, 4, 36), f32,
+             {"lengths": [70, 1, 33]}),
+            ("bf16", (2, 333, 16, 256), bf16, {}),
+            ("bf16 di=37, padded", (2, 77, 3, 37), bf16,
+             {"lengths": [5, 77]}),
+            ("B=2, S=130 at full width", (2, 130, 16, 8192), f32, {}),
+            ("bf16 serve shape, padded", (4, 2048, 16, 8192), bf16,
+             {"lengths": [2048, 256, 1000, 1731]})]:
+        scan_check(label, shape, dtype, g, dev, **extra)
+        torch.cuda.empty_cache()
+    shape = (SSM_SLOTS, PROMPT_HI, 16, 8192)
+    worst, (da, dbx) = scan_check("prefill shape, padded", shape, f32, g,
+                                  dev, lengths=[2048, 256, 1000, 1731])
+    scan_ms = time_ms(lambda: ops.mamba_scan(da, dbx), 10)
+    plain_ms = time_ms(lambda: ref.mamba_scan_ref(da, dbx), 2)
+    # da and dbx read once, h written once (float32): 12 B an element, one
+    # fma each
+    n_el = da.numel()
+    m_bound, m_by = bound_ms(12 * n_el, 2 * n_el, FP32_OPS_PER_S)
+    del da, dbx
+    torch.cuda.empty_cache()
+    rec = dict(name="mamba_scan", route="cuda",
+               source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+               replaces="src/repro/kernels/mamba_scan.py:56",
+               max_abs_err=worst, ms=scan_ms, plain_ms=plain_ms,
+               bound_ms=m_bound, bound_by=m_by, library_ms=None,
+               shape=list(shape))
+    log(f"[kernels] mamba_scan at {rec['shape']}: {scan_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library None (no PyTorch call computes the "
+        f"recurrence), bound {m_bound:.4f} ms ({m_by})")
+    return rec
+
+
+def phase_falcon_serve(dev):
+    """falcon-mamba-7b at full width through launch.serve's entry function;
+    returns (lm, prompts, launches)."""
+    cfg = get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    lm.weights()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"[falcon-serve] {SSM_ARCH}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, dt_rank "
+        f"{cfg.dt_rank}, vocab {cfg.vocab_size}: {n_params} parameters "
+        f"(ModelConfig.n_params {cfg.n_params()} leaves out conv_b) in "
+        f"{cfg.param_dtype}, compute and SSM state {cfg.dtype}; init and "
+        f"compute copy on the card in {time.perf_counter() - t0:.2f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts = serve_prompts(cfg, SSM_REQUESTS)
+
+    def run():
+        return serve(lm, prompts, max_new=SSM_NEW, slots=SSM_SLOTS,
+                     max_len=SERVE_MAX_LEN, replicas=SERVE_REPLICAS)
+
+    torch.cuda.reset_peak_memory_stats()
+    counted = Counted(lm)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, done, _ = run()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    counted.restore()
+    peak = torch.cuda.max_memory_allocated()
+    n_pre, n_dec = counted.calls["prefill"], counted.calls["decode"]
+    want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
+            "dispatch_positions": 0, "flash_attention": 0,
+            "mamba_scan": cfg.n_layers * n_pre}
+    log(f"[falcon-serve] {len(done)} of {SSM_REQUESTS} requests finished; "
+        f"{n_pre} prefill calls, {n_dec} decode steps; launches {launches}")
+    if launches != want or n_pre <= 0:
+        fail(f"falcon-serve launch counts {launches}, expected {want}")
+    if len(done) != SSM_REQUESTS or summary["finished"] != SSM_REQUESTS:
+        fail(f"{len(done)} of {SSM_REQUESTS} requests finished")
+    tokens = {r.rid: list(r.generated) for r in done}
+    if any(len(t) != SSM_NEW for t in tokens.values()):
+        fail("a request stopped before its max_new tokens")
+    if any(not 0 <= x < cfg.vocab_padded for t in tokens.values()
+           for x in t):
+        fail("a generated token lies outside the vocabulary")
+    gen = sum(len(t) for t in tokens.values())
+    dec_tokens = gen - len(done)
+    log(f"[falcon-serve] wall {wall:.3f}s for {gen} generated tokens "
+        f"({gen / wall:.1f} tok/s); prefill {counted.prefill_tokens} prompt "
+        f"tokens in {counted.seconds['prefill']:.3f}s "
+        f"({counted.prefill_tokens / counted.seconds['prefill']:.1f} tok/s,"
+        f" {1e3 * counted.seconds['prefill'] / n_pre:.1f} ms/call); decode "
+        f"{dec_tokens} tokens in {counted.seconds['decode']:.3f}s "
+        f"({dec_tokens / counted.seconds['decode']:.1f} tok/s, "
+        f"{1e3 * counted.seconds['decode'] / n_dec:.2f} ms/step); peak "
+        f"device memory {peak / 2**30:.2f} GiB; CLI record "
+        f"{json.dumps(summary)}")
+    if not peak < MEMORY_LIMIT:
+        fail(f"peak device memory {peak / 1e9:.2f} GB, not under 80 GB")
+
+    t0 = time.perf_counter()
+    _, again, _ = run()
+    if {r.rid: list(r.generated) for r in again} != tokens:
+        fail("a second falcon-mamba serving run generated other tokens")
+    log(f"[falcon-serve] second run repeats all {gen} tokens "
+        f"({time.perf_counter() - t0:.2f}s)")
+
+    def short():
+        Engine(lm, slots=SSM_SLOTS, max_len=SERVE_MAX_LEN).run(
+            [GenRequest(i, p, 8) for i, p in enumerate(prompts[:SSM_SLOTS])])
+        torch.cuda.synchronize()
+    short()
+    t0 = time.perf_counter()
+    short()
+    device_time_table(short, time.perf_counter() - t0, "falcon-profile")
+    return launches
+
+
+def _leaves(cache):
+    if isinstance(cache, dict):
+        return [t for key in sorted(cache) for t in _leaves(cache[key])]
+    return list(cache)
+
+
+def _max_rel(got, want) -> float:
+    return (got.cpu().float() - want.float()).abs().max().item() / max(
+        want.abs().max().item(), 1e-30)
+
+
+def lm_vs_plain(tag, cfg, dev, *, decode_steps, check_cache):
+    """``cfg`` on the card and on the CPU with the card's weights: 4
+    right-padded prompts of 100-512 tokens prefilled, then ``decode_steps``
+    greedy steps fed the CPU's tokens; logits within 1e-4 x max|logit| at
+    each step. Returns (the card's launch counts over the prefill, the MoE
+    dispatch calls of each device's prefill)."""
+    card = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    host = LM(cfg, device="cpu")
+    host.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    rng = np.random.default_rng(2)
+    lens = rng.integers(100, 513, size=4).astype(np.int32)
+    toks = np.zeros((4, 512), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, size=n)
+
+    calls = []
+    plain_dispatch = moe_mod.dispatch_grouped
+
+    def recording(logits, **kw):
+        res = plain_dispatch(logits, **kw)
+        calls.append(res)
+        return res
+    moe_mod.dispatch_grouped = recording
+    try:
+        c_card = card.init_cache(4, 512 + decode_steps)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        lc, c_card = card.prefill(c_card, toks, lens)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        on_card, calls[:] = list(calls), []
+        c_host = host.init_cache(4, 512 + decode_steps)
+        t0 = time.perf_counter()
+        lh, c_host = host.prefill(c_host, toks, lens)
+        t_host = time.perf_counter() - t0
+        on_host = list(calls)
+    finally:
+        moe_mod.dispatch_grouped = plain_dispatch
+    err = _max_rel(lc, lh)
+    log(f"[{tag}] prefill of prompts {lens.tolist()} (bucket 512): "
+        f"last-token logits within {err:.3e} x max|logit|; {t_card:.3f}s on "
+        f"the card, {t_host:.3f}s on the CPU; card launches {launches}")
+    if not err <= LOGIT_TOL:
+        fail(f"{tag}: prefill logits differ by {err:.3e} x max|logit|")
+    if check_cache:
+        for name, got, want in zip(("state", "conv"), _leaves(c_card),
+                                   _leaves(c_host)):
+            c_err = _max_rel(got, want)
+            log(f"[{tag}] SSM {name} cache after prefill within {c_err:.3e} "
+                f"x max")
+            if not c_err <= SCAN_TOL:
+                fail(f"{tag}: SSM {name} cache differs by {c_err:.3e} x max")
+    for step in range(decode_steps):
+        nxt = lh.reshape(4, -1).argmax(-1).numpy().astype(np.int32)
+        lc, c_card = card.decode_step(c_card, nxt[:, None], lens + step)
+        lh, c_host = host.decode_step(c_host, nxt[:, None], lens + step)
+        err = _max_rel(lc, lh)
+        log(f"[{tag}] decode step {step}: logits within {err:.3e} x "
+            f"max|logit|")
+        if not err <= LOGIT_TOL:
+            fail(f"{tag}: decode step {step} logits differ by {err:.3e}")
+    return launches, on_card, on_host
+
+
+def phase_falcon_vs_plain(dev):
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=2,
+                              dtype="float32")
+    launches, _, _ = lm_vs_plain("falcon-vs-plain", cfg, dev,
+                                 decode_steps=SSM_DECODE_STEPS,
+                                 check_cache=True)
+    if launches["mamba_scan"] != cfg.n_layers:
+        fail(f"falcon-vs-plain: {launches['mamba_scan']} scan launches, "
+             f"expected {cfg.n_layers}")
+
+
+def phase_hybrid_vs_plain(dev):
+    cfg = get_config(HYBRID_ARCH).smoke()
+    launches, on_card, on_host = lm_vs_plain("hybrid-vs-plain", cfg, dev,
+                                             decode_steps=2,
+                                             check_cache=False)
+    periods = cfg.n_layers // cfg.attn_every
+    n_moe = cfg.n_layers // cfg.moe_every
+    want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
+            "mamba_scan": cfg.n_layers - periods,
+            "flash_attention": periods,
+            "dispatch_positions": cfg.experts_per_token * n_moe}
+    if launches != want:
+        fail(f"hybrid-vs-plain launch counts {launches}, expected {want}")
+    if len(on_card) != n_moe or len(on_host) != n_moe:
+        fail("the hybrid prefill did not dispatch once per MoE sub-layer")
+    for i, (rc, rh) in enumerate(zip(on_card, on_host)):
+        for f in ("expert_idx", "slot_idx", "keep"):
+            if not torch.equal(getattr(rc, f).cpu(), getattr(rh, f)):
+                fail(f"hybrid-vs-plain: MoE sub-layer {i} routing {f} "
+                     f"differs between the card and the CPU")
+    log(f"[hybrid-vs-plain] {HYBRID_ARCH} smoke ({cfg.n_layers} sub-layers:"
+        f" {cfg.n_layers - periods} Mamba, {periods} attention, {n_moe} "
+        f"MoE): routing of every MoE sub-layer equal on both devices; card "
+        f"launches {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -827,6 +1128,15 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
     phase_serve_vs_plain(dev)
+    torch.cuda.empty_cache()
+
+    mamba = phase_kernels_mamba(dev)
+    launches = phase_falcon_serve(dev)
+    mamba["launches"] = launches["mamba_scan"]
+    kernels.append(mamba)
+    torch.cuda.empty_cache()
+    phase_falcon_vs_plain(dev)
+    phase_hybrid_vs_plain(dev)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -8,8 +8,8 @@ Ported so far: the batched PSTS engine and its lab entry points::
     from repro_torch import lab
     results = lab.sweep(base=scenario, grid={"seed": range(128)})
 
-and LM serving (attention families, PSTS MoE dispatch, the request
-scheduler, the continuous-batching engine)::
+and LM serving (attention, Mamba and hybrid families, PSTS MoE dispatch,
+the request scheduler, the continuous-batching engine)::
 
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m ...
 

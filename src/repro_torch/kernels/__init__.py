@@ -9,6 +9,9 @@ one by the tensor's device:
                   expert, a block per token group
   flash_attention — causal GQA online-softmax attention, a block per
                   (batch, head, 64-query tile) walking its KV tiles
+  mamba_scan    — the selective scan of Mamba-1, a thread per few channels
+                  of a (batch, state) row walking the sequence with h in
+                  registers
 """
 
 from . import ops, ref

@@ -10,12 +10,14 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as _flash
+from . import mamba_scan as _mamba
 from . import prefix_scan as _scan
 from . import psts_dispatch as _dispatch
 from . import ref
 
 __all__ = ["prefix_scan", "dispatch_work_prefix", "dispatch_positions",
-           "flash_attention", "launch_counts", "reset_launch_counts"]
+           "flash_attention", "mamba_scan", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -67,12 +69,21 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                                    kv_positions=kv_positions)
 
 
+def mamba_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
+    """The selective scan ``h_t = da_t * h_{t-1} + dbx_t`` over axis 1 of
+    da, dbx (B, S, N, di), from h = 0; h in float32."""
+    if _on_cuda(da):
+        return _mamba.mamba_scan_cuda(da, dbx)
+    return ref.mamba_scan_ref(da, dbx)
+
+
 def launch_counts() -> dict[str, int]:
     """CUDA launches of each kernel in this process."""
     return {"prefix_scan": _scan.LAUNCHES,
             "dispatch_work_prefix": _dispatch.LAUNCHES,
             "dispatch_positions": _dispatch.POSITION_LAUNCHES,
-            "flash_attention": _flash.LAUNCHES}
+            "flash_attention": _flash.LAUNCHES,
+            "mamba_scan": _mamba.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -80,3 +91,4 @@ def reset_launch_counts() -> None:
     _dispatch.LAUNCHES = 0
     _dispatch.POSITION_LAUNCHES = 0
     _flash.LAUNCHES = 0
+    _mamba.LAUNCHES = 0

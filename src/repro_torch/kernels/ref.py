@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["prefix_scan_ref", "dispatch_work_prefix_ref",
-           "dispatch_positions_ref", "flash_attention_ref"]
+           "dispatch_positions_ref", "flash_attention_ref", "mamba_scan_ref"]
 
 _NEG = -2.0 ** 30  # the attention mask value, as in the JAX package
 
@@ -138,3 +138,24 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
                                                   device=q.device))
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", w, vf).to(q.dtype)
+
+
+def mamba_scan_ref(da: torch.Tensor, dbx: torch.Tensor,
+                   h0: torch.Tensor | None = None) -> torch.Tensor:
+    """The selective-scan recurrence ``h_t = da_t * h_{t-1} + dbx_t`` over
+    axis 1, from ``h0`` (B, N, di) or zero, in float32.
+
+    da, dbx (B, S, N, di) of any float type (the layout of
+    ``repro.kernels.ref.mamba_scan_ref``); returns h (B, S, N, di) float32.
+    A sequential loop over S, in the kernel's order: padding steps with
+    da = 1 and dbx = 0 carry the state unchanged.
+    """
+    da32, dbx32 = da.float(), dbx.float()
+    b, s, n, di = da.shape
+    out = torch.empty((b, s, n, di), dtype=torch.float32, device=da.device)
+    h = (torch.zeros((b, n, di), dtype=torch.float32, device=da.device)
+         if h0 is None else h0.float())
+    for t in range(s):
+        h = torch.addcmul(dbx32[:, t], da32[:, t], h)
+        out[:, t] = h
+    return out

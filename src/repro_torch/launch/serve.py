@@ -1,8 +1,13 @@
 """Serving CLI: continuous batching with the PSTS request scheduler, on the
-CUDA device unless ``--device cpu`` is given.
+CUDA device unless ``--device cpu`` is given, for any config of
+``configs``: attention with MLP or MoE layers (granite-moe, ...), Mamba
+layers (falcon-mamba-7b) or hybrid periods (jamba, at its smoke size on one
+card).
 
   python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --smoke \\
       --requests 16 --max-new 8 --replicas 2 --device cpu
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b --requests 16 \\
+      --prompt-len 2048 --max-new 32 --slots 4 --max-len 4096 --replicas 2
 
 Prints one JSON line (finished requests, generated tokens, wall seconds,
 tokens/s, replica loads), as ``repro.launch.serve`` does. The prompts are

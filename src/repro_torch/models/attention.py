@@ -44,6 +44,16 @@ class KVCache(NamedTuple):
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
+    def write_slots(self, small: "KVCache", idx: torch.Tensor) -> None:
+        """Copy the prefill batch ``small`` (n_stages, b, S, KV, hd) into
+        batch slots ``idx`` of this (n_stages, B, L, KV, hd) cache: rows
+        [0, S) from ``small``, the rows beyond zeroed, as the JAX engine's
+        full-length scratch leaves them."""
+        s = small.k.shape[2]
+        for big, part in zip(self, small):
+            big[:, idx, :s] = part
+            big[:, idx, s:] = 0
+
 
 class Attention(nn.Module):
     """``{"wq", "wk", "wv", "wo"}`` dense layers."""

@@ -1,13 +1,18 @@
-"""LM assembly: a config-driven decoder stack for the families whose stage is
-attention + MLP/MoE (dense, moe, vlm, audio).
+"""LM assembly: a config-driven decoder stack for every family of the JAX
+package: attention + MLP/MoE stages (dense, moe, vlm, audio), Mamba stages
+(ssm: falcon-mamba) and hybrid periods (jamba: ``attn_every`` sub-layers,
+attention at ``attn_offset`` and Mamba elsewhere, MoE on every
+``moe_every``-th).
 
 The parameters live in ``nn.Module``s under the JAX package's keys
-(``embed``, ``stages.<i>.{norm1, attn, norm2, ffn.{mlp|moe}}``,
-``final_norm``, ``unembed``), one module per stage where the JAX package
-stacks the stages on a leading axis for ``lax.scan``; the stage loop is a
-Python loop. The forward passes read a compute copy of the weights, made
-once per set of parameters: matrices in the compute dtype, the router and
-the norms as stored (the JAX package casts at every call, with the same
+(``embed``, ``stages.<i>.{norm1, attn, norm2, ffn.{mlp|moe}}`` or
+``stages.<i>.{norm, mamba}`` or ``stages.<i>.sub_<j>.{norm1, mixer, norm2,
+ffn}``, ``final_norm``, ``unembed``), one module per stage where the JAX
+package stacks the stages on a leading axis for ``lax.scan``; the stage
+loop is a Python loop. The forward passes read a compute copy of the
+weights, made once per set of parameters: matrices in the compute dtype;
+the router, ``dt_proj`` (both run in float32), the norms and the SSM's
+vectors as stored (the JAX package casts at every call, with the same
 values). Inference runs without autograd; ``loss``, ``remat`` and the
 training path come with the training slice of the port.
 """
@@ -41,11 +46,12 @@ from .common import (
 )
 from .mlp import MLP, mlp_apply
 from .moe import MoE, moe_apply
+from .ssm import Mamba, SSMCache, ssm_decode, ssm_prefill, ssm_train
 
 __all__ = ["LM"]
 
-_ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
 _COMPUTE_KEYS = ("w", "b", "wi", "wg", "wo")  # cast to the compute dtype
+_FLOAT32_LAYERS = ("router", "dt_proj")        # kept as stored
 
 
 def _zero_aux(device):
@@ -56,11 +62,12 @@ def _zero_aux(device):
 
 def _compute_copy(tree: dict, dtype: torch.dtype) -> dict:
     """The parameter tree with every matrix and bias in ``dtype``, except
-    the router's (the router runs in float32) and the norms'."""
+    the router's and ``dt_proj``'s (both run in float32) and the norms'."""
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
-            out[key] = val if key == "router" else _compute_copy(val, dtype)
+            out[key] = (val if key in _FLOAT32_LAYERS
+                        else _compute_copy(val, dtype))
         elif key in _COMPUTE_KEYS:
             out[key] = val.detach().to(dtype)
         else:
@@ -78,23 +85,69 @@ class _FFN(nn.Module):
         self.add_module(child_name, child)
 
 
+def _ffn(cfg: ModelConfig, layer_idx: int, dtype, device) -> _FFN:
+    """The JAX package's ``_ffn_init(key, layer_idx)``: MoE iff the config
+    has experts and ``layer_idx % moe_every == moe_every - 1``."""
+    if cfg.is_moe and layer_idx % cfg.moe_every == cfg.moe_every - 1:
+        return _FFN("moe", MoE(cfg, dtype=dtype, device=device))
+    return _FFN("mlp", MLP(cfg.d_model, cfg.d_ff, gated=cfg.mlp_gated,
+                           n_layers=cfg.n_layers, dtype=dtype,
+                           device=device))
+
+
 class Stage(nn.Module):
-    """``{"norm1", "attn", "norm2", "ffn": {"mlp"|"moe"}}``."""
+    """An attention family's layer: ``{"norm1", "attn", "norm2", "ffn":
+    {"mlp"|"moe"}}`` (the JAX package's ``_ffn_init(key, 0)``: MoE in every
+    stage iff ``moe_every == 1``)."""
 
     def __init__(self, cfg: ModelConfig, norm, dtype, device):
         super().__init__()
         self.norm1 = norm()
         self.attn = Attention(cfg, dtype=dtype, device=device)
         self.norm2 = norm()
-        # the JAX package's _ffn_init(key, 0): MoE in every stage iff
-        # moe_every == 1 (other periods interleave only in the hybrid stage)
-        if cfg.is_moe and cfg.moe_every == 1:
-            self.ffn = _FFN("moe", MoE(cfg, dtype=dtype, device=device))
-        else:
-            self.ffn = _FFN("mlp", MLP(cfg.d_model, cfg.d_ff,
-                                       gated=cfg.mlp_gated,
-                                       n_layers=cfg.n_layers, dtype=dtype,
-                                       device=device))
+        self.ffn = _ffn(cfg, 0, dtype, device)
+
+
+class SSMStage(nn.Module):
+    """A Mamba layer (ssm family): ``{"norm", "mamba"}``, no FFN."""
+
+    def __init__(self, cfg: ModelConfig, norm, dtype, device):
+        super().__init__()
+        self.norm = norm()
+        self.mamba = Mamba(cfg, dtype=dtype, device=device)
+
+
+class _SubLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, j: int, norm, dtype, device):
+        super().__init__()
+        self.norm1 = norm()
+        self.mixer = (Attention(cfg, dtype=dtype, device=device)
+                      if j == cfg.attn_offset
+                      else Mamba(cfg, dtype=dtype, device=device))
+        self.norm2 = norm()
+        self.ffn = _ffn(cfg, j, dtype, device)
+
+
+class HybridStage(nn.Module):
+    """One hybrid period: ``{"sub_<j>": {"norm1", "mixer", "norm2",
+    "ffn"}}`` for j < ``attn_every``; the mixer is attention at
+    ``attn_offset`` and Mamba elsewhere."""
+
+    def __init__(self, cfg: ModelConfig, norm, dtype, device):
+        super().__init__()
+        for j in range(cfg.attn_every):
+            self.add_module(f"sub_{j}", _SubLayer(cfg, j, norm, dtype,
+                                                  device))
+
+
+_STAGES = {"ssm": SSMStage, "hybrid": HybridStage}
+
+
+def _at(cache, i: int):
+    """Stage ``i`` of a cache tree (views, so writes land in the cache)."""
+    if isinstance(cache, dict):
+        return {key: _at(val, i) for key, val in cache.items()}
+    return type(cache)(*(t[i] for t in cache))
 
 
 class LM(nn.Module):
@@ -103,20 +156,21 @@ class LM(nn.Module):
     ``init(generator)`` draws the parameters; ``load_state_dict`` takes
     converted JAX parameters (``models.convert.from_jax_params``). Then
     ``prefill``/``decode_step`` serve and ``apply`` runs the full-sequence
-    forward. Caches are ``KVCache`` of (n_layers, B, L, KV, hd) tensors,
-    written in place.
+    forward. Caches carry a leading ``n_stages`` axis and are written in
+    place: ``KVCache`` (n_stages, B, L, KV, hd) for the attention families,
+    ``SSMCache`` (n_stages, B, di, N) / (n_stages, B, K-1, di) for ssm, and
+    for hybrid a dict ``{"sub_<j>": KVCache | SSMCache}``, as the JAX
+    package's cache pytree.
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family not in _ATTENTION_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family (Mamba layers) is not "
-                f"ported yet; see ROADMAP.md queue 1, falcon-mamba-7b "
-                f"serving")
+        if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
+            raise ValueError("hybrid needs n_layers % attn_every == 0")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.n_stages = cfg.n_layers
+        self.n_stages = (cfg.n_layers // cfg.attn_every
+                         if cfg.family == "hybrid" else cfg.n_layers)
         self.compute_dtype = dtype_of(cfg.dtype)
         self.param_dtype = dtype_of(cfg.param_dtype)
         dt, dev = self.param_dtype, self.device
@@ -132,7 +186,8 @@ class LM(nn.Module):
         if cfg.prefix_len:
             self.prefix_proj = Dense(cfg.prefix_dim, cfg.d_model, dtype=dt,
                                      device=dev)
-        self.stages = nn.ModuleList(Stage(cfg, norm, dt, dev)
+        stage = _STAGES.get(cfg.family, Stage)
+        self.stages = nn.ModuleList(stage(cfg, norm, dt, dev)
                                     for _ in range(self.n_stages))
         self.final_norm = norm()
         if not cfg.tie_embeddings:
@@ -223,6 +278,36 @@ class LM(nn.Module):
     def _as_long(self, t):
         return torch.as_tensor(t, device=self.device).long()
 
+    def _sublayers(self, sp):
+        """A stage's sub-layers as ``(mixer kind, cache key, {"norm1",
+        "mixer", "norm2"?, "ffn"?})``: one for the attention families and
+        ssm (no FFN), ``attn_every`` for hybrid (cache key ``sub_<j>``)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return [("ssm", None, {"norm1": sp["norm"],
+                                   "mixer": sp["mamba"]})]
+        if cfg.family == "hybrid":
+            return [("attn" if j == cfg.attn_offset else "ssm", f"sub_{j}",
+                     sp[f"sub_{j}"]) for j in range(cfg.attn_every)]
+        return [("attn", None, {"norm1": sp["norm1"], "mixer": sp["attn"],
+                                "norm2": sp["norm2"], "ffn": sp["ffn"]})]
+
+    def _stage(self, sp, x, mix, is_global, cache=None):
+        """One stage: per sub-layer ``x + mixer(norm1(x))``, then ``x +
+        ffn(norm2(x))`` where it has an FFN. ``mix(kind, p, h, cache,
+        is_global)`` runs the mixer. Returns (x, aux)."""
+        aux = _zero_aux(x.device)
+        for kind, key, sub in self._sublayers(sp):
+            c = cache if key is None or cache is None else cache[key]
+            x = x + mix(kind, sub["mixer"], self._norm(sub["norm1"], x), c,
+                        is_global)
+            if "ffn" in sub:
+                h, a = self._ffn_apply(sub["ffn"],
+                                       self._norm(sub["norm2"], x))
+                x = x + h
+                aux = {k: aux[k] + a[k] for k in aux}
+        return x, aux
+
     # ------------------------------------------------------------------
     # forward passes
     # ------------------------------------------------------------------
@@ -231,6 +316,7 @@ class LM(nn.Module):
         """tokens: (B, S) -> (logits (B, S', V) float32, aux). With a
         modality prefix the sequence is [prefix; tokens] and logits cover
         token positions."""
+        cfg = self.cfg
         w = self.weights()
         tokens = self._as_long(tokens)
         x = self._embed(w, tokens)
@@ -243,70 +329,100 @@ class LM(nn.Module):
             n_prefix = pe.shape[1]
         b, s, _ = x.shape
         positions = torch.arange(s, device=self.device).expand(b, s)
+
+        def mix(kind, p, h, _cache, is_global):
+            if kind == "attn":
+                return attn_train(p, h, cfg, positions=positions,
+                                  is_global=is_global)
+            return ssm_train(p, h, cfg)
+
         aux = _zero_aux(self.device)
         for sp, is_global in zip(w["stages"], self.stage_meta()):
-            x = x + attn_train(sp["attn"], self._norm(sp["norm1"], x),
-                               self.cfg, positions=positions,
-                               is_global=is_global)
-            h, a = self._ffn_apply(sp["ffn"], self._norm(sp["norm2"], x))
-            x = x + h
+            x, a = self._stage(sp, x, mix, is_global)
             aux = {key: aux[key] + a[key] for key in aux}
         x = self._norm(w["final_norm"], x)
         if n_prefix:
             x = x[:, n_prefix:]
         return self._logits(w, x), aux
 
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> KVCache:
-        """Zero KV caches (n_layers, batch, max_len, KV, hd) in
-        ``kv_cache_dtype`` (or ``dtype``) on the LM's device."""
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        """Zero caches with a leading ``n_stages`` axis on the LM's device:
+        KV caches (.., batch, max_len, KV, hd) in ``kv_cache_dtype``, SSM
+        state (.., batch, di, N) and conv window (.., batch, K-1, di) in the
+        compute dtype (``dtype`` overrides both), in the family's layout
+        (see the class docstring)."""
         cfg = self.cfg
-        dt = dtype_of(cfg.kv_cache_dtype) if dtype is None else dtype
-        shape = (self.n_stages, batch, max_len, cfg.n_kv_heads,
-                 cfg.head_dim_)
-        return KVCache(torch.zeros(shape, dtype=dt, device=self.device),
-                       torch.zeros(shape, dtype=dt, device=self.device))
+        kv_dtype = dtype_of(cfg.kv_cache_dtype) if dtype is None else dtype
+        ssm_dtype = self.compute_dtype if dtype is None else dtype
+        lead, dev = (self.n_stages, batch), self.device
+
+        def kv():
+            shape = lead + (max_len, cfg.n_kv_heads, cfg.head_dim_)
+            return KVCache(torch.zeros(shape, dtype=kv_dtype, device=dev),
+                           torch.zeros(shape, dtype=kv_dtype, device=dev))
+
+        def ssm():
+            return SSMCache(
+                torch.zeros(lead + (cfg.d_inner, cfg.ssm_state),
+                            dtype=ssm_dtype, device=dev),
+                torch.zeros(lead + (cfg.ssm_conv - 1, cfg.d_inner),
+                            dtype=ssm_dtype, device=dev))
+
+        if cfg.family == "ssm":
+            return ssm()
+        if cfg.family == "hybrid":
+            return {f"sub_{j}": kv() if j == cfg.attn_offset else ssm()
+                    for j in range(cfg.attn_every)}
+        return kv()
 
     @torch.no_grad()
-    def prefill(self, cache: KVCache, tokens, lengths):
+    def prefill(self, cache, tokens, lengths):
         """Process right-padded prompts and populate the cache.
 
         tokens: (B, S); lengths: (B,) real lengths (<= S <= cache max_len).
         Returns (last-token logits (B, V) float32, cache)."""
+        cfg = self.cfg
         w = self.weights()
         tokens = self._as_long(tokens)
         lengths = self._as_long(lengths)
         b, s = tokens.shape
         pos = torch.arange(s, device=self.device).expand(b, s)
-        positions = torch.where(pos < lengths[:, None], pos, -1)
+        mask = pos < lengths[:, None]
+        positions = torch.where(mask, pos, -1)
+
+        def mix(kind, p, h, c, is_global):
+            if kind == "attn":
+                return attn_prefill(p, h, cfg, c, positions=positions,
+                                    is_global=is_global)[0]
+            return ssm_prefill(p, h, cfg, c, mask=mask)[0]
+
         x = self._embed(w, tokens)
         for i, (sp, is_global) in enumerate(zip(w["stages"],
                                                 self.stage_meta())):
-            h, _ = attn_prefill(sp["attn"], self._norm(sp["norm1"], x),
-                                self.cfg, KVCache(cache.k[i], cache.v[i]),
-                                positions=positions, is_global=is_global)
-            x = x + h
-            hf, _ = self._ffn_apply(sp["ffn"], self._norm(sp["norm2"], x))
-            x = x + hf
+            x, _ = self._stage(sp, x, mix, is_global, _at(cache, i))
         x = self._norm(w["final_norm"], x)
         last = x[torch.arange(b, device=self.device),
                  (lengths - 1).clamp_min(0)]               # (B, d)
         return self._logits(w, last), cache
 
     @torch.no_grad()
-    def decode_step(self, cache: KVCache, tokens, lengths):
+    def decode_step(self, cache, tokens, lengths):
         """tokens: (B, 1) current token; lengths: (B,) its position.
         Returns (logits (B, 1, V) float32, cache)."""
+        cfg = self.cfg
         w = self.weights()
         tokens = self._as_long(tokens)
         lengths = self._as_long(lengths)
+
+        def mix(kind, p, h, c, is_global):
+            if kind == "attn":
+                return attn_decode(p, h, cfg, c, lengths,
+                                   is_global=is_global)[0]
+            return ssm_decode(p, h, cfg, c)[0]
+
         x = self._embed(w, tokens, positions=lengths[:, None])
         for i, (sp, is_global) in enumerate(zip(w["stages"],
                                                 self.stage_meta())):
-            h, _ = attn_decode(sp["attn"], self._norm(sp["norm1"], x),
-                               self.cfg, KVCache(cache.k[i], cache.v[i]),
-                               lengths, is_global=is_global)
-            x = x + h
-            hf, _ = self._ffn_apply(sp["ffn"], self._norm(sp["norm2"], x))
-            x = x + hf
+            x, _ = self._stage(sp, x, mix, is_global, _at(cache, i))
         x = self._norm(w["final_norm"], x)
         return self._logits(w, x), cache

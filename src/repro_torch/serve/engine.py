@@ -1,7 +1,8 @@
 """Serving engine: slot-based continuous batching over the LM's prefill /
 decode paths.
 
-One Engine = one model replica: a fixed pool of KV slots; admissions
+One Engine = one model replica: a fixed pool of cache slots (KV rows for
+attention, state and conv window for Mamba); admissions
 prefill into free slots (prompt lengths bucketed, as in the JAX package,
 where the buckets bound recompilation); ``step()`` decodes every slot in one
 batched call. The multi-replica front-end is ``launch.serve``, which places
@@ -34,6 +35,17 @@ def _bucket(n: int, buckets=(32, 64, 128, 256, 512, 1024, 2048, 4096)) -> int:
         if n <= b:
             return b
     return -(-n // 4096) * 4096
+
+
+def _write_slots(big, small, idx) -> None:
+    """Copy a prefill batch's cache into slots ``idx``: a dict (the hybrid
+    family's per-sub-layer caches) key by key, a ``KVCache`` or
+    ``SSMCache`` by its own ``write_slots``."""
+    if isinstance(big, dict):
+        for key, val in big.items():
+            _write_slots(val, small[key], idx)
+    else:
+        big.write_slots(small, idx)
 
 
 class Engine:
@@ -80,17 +92,14 @@ class Engine:
         for i, r in enumerate(batch):
             toks[i, :len(r.prompt)] = r.prompt
             lens[i] = len(r.prompt)
-        # a scratch cache for the prefill batch, copied into the slots; the
-        # rows beyond the bucket are zeroed, as the JAX engine's full-length
-        # scratch leaves them
+        # a scratch cache for the prefill batch (KV rows up to the bucket),
+        # copied into the slots by each cache kind's write_slots
         scratch = self.lm.init_cache(len(batch), s_max)
         logits, scratch = self.lm.prefill(scratch, toks, lens)
         next_tok = self._sample(logits)
         slot_idx = np.array(free[:len(batch)])
-        idx = torch.as_tensor(slot_idx, device=self.lm.device)
-        for big, small in zip(self.cache, scratch):
-            big[:, idx, :s_max] = small
-            big[:, idx, s_max:] = 0
+        _write_slots(self.cache, scratch,
+                     torch.as_tensor(slot_idx, device=self.lm.device))
         for i, r in enumerate(batch):
             slot = int(slot_idx[i])
             r.slot = slot

@@ -150,3 +150,84 @@ def test_flash_kernel_position_form_matches_plain(cuda):
                                        q_positions=q_pos,
                                        kv_positions=kv_pos)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,s,n,di,dtype,padded", [
+    (1, 1, 16, 8192, torch.float32, False),
+    (2, 130, 16, 256, torch.float32, False),
+    (3, 70, 4, 36, torch.float32, True),       # di % 4 != 0: one channel
+    (2, 333, 16, 256, torch.bfloat16, False),
+    (2, 77, 3, 37, torch.bfloat16, True),
+    (1, 2048, 16, 8192, torch.float32, True)])
+def test_mamba_scan_kernel_matches_plain(cuda, b, s, n, di, dtype, padded):
+    g = torch.Generator().manual_seed(b * s + di)
+    da = (torch.rand(b, s, n, di, generator=g) * 0.5 + 0.5).to(cuda, dtype)
+    dbx = torch.randn(b, s, n, di, generator=g).to(cuda, dtype)
+    if padded:          # right padding is the identity transition
+        lens = torch.randint(1, s + 1, (b,), generator=g).to(cuda)
+        pad = torch.arange(s, device=cuda)[None, :] >= lens[:, None]
+        da[pad] = 1.0
+        dbx[pad] = 0.0
+    before = ops.launch_counts()["mamba_scan"]
+    got = ops.mamba_scan(da, dbx)
+    assert ops.launch_counts()["mamba_scan"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == da.shape
+    want = ref.mamba_scan_ref(da, dbx)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if padded:
+        last = got[torch.arange(b, device=cuda), lens - 1]
+        assert torch.equal(got[:, -1], last)
+
+
+def test_mamba_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.ones(1, 4, 2, 8, device=cuda)
+    with pytest.raises(TypeError):
+        ops.mamba_scan(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mamba_scan(x.transpose(2, 3), x.transpose(2, 3))
+    with pytest.raises(ValueError, match="both be"):
+        ops.mamba_scan(x, x[:, :3])
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_ssm_lm_on_card_matches_cpu(cuda, arch):
+    """The smoke LM's prefill and two decode steps on the card against the
+    CPU (plain versions), float32 on both: logits within 1e-4 x max|logit|,
+    SSM states within 1e-4. Prefill launches the scan kernel once per Mamba
+    layer (and, for jamba, flash and the dispatch positions); decode
+    launches no scan."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config(arch).smoke()
+    card = LM(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    host = LM(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(3)
+    lens = np.array([30, 1, 17, 64], np.int32)
+    toks = np.zeros((4, 64), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, size=n)
+    n_mamba = (cfg.n_layers if cfg.family == "ssm"
+               else cfg.n_layers - cfg.n_layers // cfg.attn_every)
+    c_card, c_host = card.init_cache(4, 80), host.init_cache(4, 80)
+    ops.reset_launch_counts()
+    lc, c_card = card.prefill(c_card, toks, lens)
+    after_prefill = ops.launch_counts()
+    assert after_prefill["mamba_scan"] == n_mamba
+    if cfg.family == "hybrid":
+        assert after_prefill["flash_attention"] == cfg.n_layers // \
+            cfg.attn_every
+        assert after_prefill["dispatch_positions"] > 0
+    lh, c_host = host.prefill(c_host, toks, lens)
+    for step in range(3):
+        scale = lh.abs().max().item()
+        assert (lc.cpu() - lh).abs().max().item() <= 1e-4 * scale, step
+        nxt = lh.reshape(4, -1).argmax(-1).numpy().astype(np.int32)
+        lc, c_card = card.decode_step(c_card, nxt[:, None], lens + step)
+        lh, c_host = host.decode_step(c_host, nxt[:, None], lens + step)
+    assert ops.launch_counts()["mamba_scan"] == n_mamba
+    leaves = (lambda c: [t for k in sorted(c) for t in c[k]]
+              if isinstance(c, dict) else list(c))
+    for got, want in zip(leaves(c_card), leaves(c_host)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -52,12 +52,12 @@ def test_serving_subpackages_import_without_jax_or_repro(report):
     assert report["libs"] == 0
     for sub, mods in {
             "configs": ("base", "granite_moe_1b", "olmo_1b"),
-            "models": ("common", "mlp", "attention", "moe", "model",
+            "models": ("common", "mlp", "attention", "moe", "ssm", "model",
                        "convert"),
             "sched": ("moe_dispatch", "request_sched"),
             "serve": ("engine",),
             "launch": ("serve",),
-            "kernels": ("flash_attention",),
+            "kernels": ("flash_attention", "mamba_scan"),
             "core": ("psts",)}.items():
         assert f"repro_torch.{sub}" in report["modules"]
         for mod in mods:

@@ -1,6 +1,8 @@
 """The port's LM against the JAX package's on the CPU: ``prefill``,
 ``decode_step`` and ``apply`` logits and caches, for granite-moe (MoE,
-RMSNorm) and olmo-1b (dense, non-parametric LayerNorm) at their smoke
+RMSNorm), olmo-1b (dense, non-parametric LayerNorm), falcon-mamba-7b (ssm:
+Mamba layers, SSM state and conv caches) and jamba-v0.1-52b (hybrid: Mamba,
+attention and MoE sub-layers, a per-sub-layer cache) at their smoke
 configs, with the JAX parameters converted by ``from_jax_params`` and
 right-padded prompts of several lengths.
 
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config
+from repro.configs import REGISTRY, get_config
 from repro.models import LM as JaxLM
 from repro_torch.configs import get_config as port_config
 from repro_torch.models import (
@@ -26,7 +28,8 @@ from repro_torch.models import (
     moe,
 )
 
-ARCHS = ("granite-moe-1b-a400m", "olmo-1b")
+ARCHS = ("granite-moe-1b-a400m", "olmo-1b", "falcon-mamba-7b",
+         "jamba-v0.1-52b")
 LENGTHS = (3, 17, 32, 9)        # one prefill batch, bucket S = 32
 MAX_LEN = 48
 LOGIT_TOL = 1e-4
@@ -58,8 +61,21 @@ def _close_logits(got, want):
     assert np.abs(got.numpy() - want).max() <= LOGIT_TOL * scale
 
 
+def _cache_leaves(cache):
+    """A cache's tensors in the JAX pytree's leaf order: a dict (the hybrid
+    family's ``sub_<j>`` caches) by sorted key, a KVCache/SSMCache by
+    field."""
+    if isinstance(cache, dict):
+        return [t for key in sorted(cache) for t in _cache_leaves(cache[key])]
+    return list(cache)
+
+
 def _close_cache(got, want):
+    want = jax.tree.leaves(want)
+    got = _cache_leaves(got)
+    assert len(got) == len(want)
     for g, w in zip(got, want):
+        assert g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=CACHE_TOL,
                                    atol=CACHE_TOL)
 
@@ -107,11 +123,27 @@ def test_apply_matches_jax(pair):
                                float(want_aux["moe_aux_loss"]), rtol=1e-5)
 
 
-def test_families_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(port_config("falcon-mamba-7b").smoke(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(port_config("jamba-v0.1-52b").smoke(), device="cpu")
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_every_family_builds_its_smoke_lm(arch):
+    """Every config's smoke LM builds on the CPU with the JAX LM's stage
+    count and parameter count, its cache has the JAX cache's leaf shapes,
+    and a prefill gives finite logits."""
+    cfg = get_config(arch).smoke()
+    lm = LM(port_config(arch).smoke(), device="cpu")
+    lm.init(torch.Generator().manual_seed(0))
+    jlm = JaxLM(cfg)
+    assert lm.n_stages == jlm.n_stages
+    shapes = jax.eval_shape(jlm.init, jax.random.key(0))
+    assert sum(p.numel() for p in lm.parameters()) == sum(
+        x.size for x in jax.tree.leaves(shapes))
+    cache = lm.init_cache(2, 16)
+    want = jax.tree.leaves(jax.eval_shape(lambda: jlm.init_cache(2, 16)))
+    assert [tuple(t.shape) for t in _cache_leaves(cache)] == \
+        [w.shape for w in want]
+    logits, _ = lm.prefill(cache, np.ones((2, 8), np.int32),
+                           np.array([8, 3], np.int32))
+    assert logits.shape == (2, cfg.vocab_padded)
+    assert torch.isfinite(logits).all()
 
 
 def test_apply_with_a_modality_prefix_matches_jax():

@@ -1,9 +1,11 @@
 """The port's serving path on the CPU against the JAX package: ``Engine.run``
 generates the same tokens as the JAX engine on granite-moe's smoke config
 (at the default capacity factor, where slots overflow and PSTS re-routes,
-and at 8.0); ``ReplicaScheduler`` makes the same placements and the same
-rebalance / failover plans; the numpy ``psts_schedule`` copy equals the JAX
-package's; and the serve CLI runs end to end with ``--device cpu``."""
+and at 8.0) and on falcon-mamba's and jamba's (SSM and hybrid caches);
+``ReplicaScheduler`` makes the same placements and the same rebalance /
+failover plans; the numpy ``psts_schedule`` copy equals the JAX package's;
+and the serve CLI runs end to end with ``--device cpu``, for granite-moe
+and falcon-mamba."""
 
 import dataclasses
 import json
@@ -63,6 +65,30 @@ def test_engine_generates_the_jax_engines_tokens(capacity_factor):
         [JaxRequest(i, p, 8) for i, p in enumerate(prompts)])
     got = Engine(lm, slots=4, max_len=96).run(
         [GenRequest(i, p, 8) for i, p in enumerate(prompts)])
+    assert len(got) == len(prompts)
+    assert {r.rid: r.generated for r in got} == \
+        {r.rid: [int(t) for t in r.generated] for r in want}
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_engine_generates_the_jax_engines_tokens_with_ssm_caches(arch):
+    """Slot reuse over SSM state and conv caches (and, for jamba, the
+    attention sub-layer's KV cache beside them): each admission copies a
+    prefill batch's caches into free slots whole."""
+    cfg = get_config(arch).smoke()
+    jlm = JaxLM(cfg)
+    params = jlm.init(jax.random.key(0))
+    lm = LM(cfg, device="cpu")
+    lm.load_state_dict(from_jax_params(cfg, jax.tree.map(np.asarray,
+                                                         params)))
+    rng = np.random.default_rng(1)
+    # one prompt bucket (32): the JAX engine compiles one prefill
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 9, 13, 30, 7, 22)]
+    want = JaxEngine(jlm, params, slots=4, max_len=96).run(
+        [JaxRequest(i, p, 6) for i, p in enumerate(prompts)])
+    got = Engine(lm, slots=4, max_len=96).run(
+        [GenRequest(i, p, 6) for i, p in enumerate(prompts)])
     assert len(got) == len(prompts)
     assert {r.rid: r.generated for r in got} == \
         {r.rid: [int(t) for t in r.generated] for r in want}
@@ -151,6 +177,19 @@ def test_serve_cli_runs_on_the_cpu():
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["finished"] == 4
     assert rec["generated_tokens"] == 4 * 8
+    assert len(rec["replica_loads"]) == 2
+
+
+def test_serve_cli_serves_falcon_mamba_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "falcon-mamba-7b", "--smoke", "--device", "cpu", "--requests", "6",
+         "--slots", "2", "--replicas", "2"],
+        env=env, check=True, capture_output=True, text=True, timeout=300)
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["finished"] == 6
+    assert rec["generated_tokens"] == 6 * 8
     assert len(rec["replica_loads"]) == 2
 
 
