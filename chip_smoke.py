@@ -9,7 +9,16 @@ Phases, each fatal on failure:
              per source, all at once) into build/repro_torch_kernels.
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the main path's shapes and at edge shapes; times of the
-             kernel, the plain version and the library yardstick.
+             kernel, the plain version and the library yardstick. Every
+             bfloat16 flash case must run the tensor-core kernel (its own
+             launch counter), every float32 one the FMA kernel; a bfloat16
+             case passes when each output row lies within 1e-2 of the plain
+             version's in relative L2 norm and each element within 3e-2
+             (rtol and atol), a float32 one within 2e-5. The flash kernels'
+             own tile rule (run on the host) must list the tiles of
+             ``flash_attention.tile_plan`` over a grid of shapes. The flash
+             times include the index form and the float32 kernel at the
+             serve shape, beside scaled_dot_product_attention's.
 3. sweep   — the main path: ``repro_torch.lab.sweep`` over a 12,500-node
              cluster (the size of Google clusterdata-2011-2's cell) at 60%
              offered Poisson load, PSTS with fifo_dispatch, 128 seeds. The
@@ -27,10 +36,11 @@ Phases, each fatal on failure:
              ReplicaScheduler, 8 slots each, max_len 4096, 32 requests with
              prompt lengths uniform in 256..2048, 64 new tokens each, greedy.
              The launch counters are zeroed just before and read just after
-             and must equal 24 flash launches per prefill call and 8 x 24
-             dispatch-positions launches per prefill call and decode step;
+             and must equal 24 flash launches per prefill call, every one on
+             the tensor cores, and 8 x 24 dispatch-positions launches per
+             prefill call and decode step;
              a second run must repeat every token; one more short run under
-             torch.profiler gives device time by kernel.
+             torch.profiler gives device time by kernel, flash's included.
 6. serve-vs-plain — the same config with 2 layers in float32, the same
              weights on the card and on the CPU (which runs the plain
              versions): 4 right-padded prompts prefilled on each; last-token
@@ -58,7 +68,8 @@ Phases, each fatal on failure:
 10. hybrid-vs-plain — jamba-v0.1-52b's smoke config (8 sub-layers: 7 Mamba,
              1 attention, 4 MoE) in float32 on the card and the CPU: the
              same logits check, every MoE sub-layer's routing equal, and the
-             card's launch counts show all three LM kernels.
+             card's launch counts show all three LM kernels (flash on its
+             float32 kernel).
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -83,6 +94,7 @@ import torch  # noqa: E402
 from repro_torch import lab  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -124,6 +136,10 @@ SCAN_TOL = 1e-4         # the JAX package's mamba_scan tolerance
 MEMORY_LIMIT = 80e9
 BF16_TOL = 3e-2         # the JAX package's own kernel tolerances
 F32_TOL = 2e-5
+# bfloat16 flash, per output row: ||got - want|| / ||want|| over hd (bf16
+# rounding of P and of the output gives ~3e-3; a tile dropped or a key
+# leaked past a mask edge, 0.1 or more at these shapes)
+BF16_ROW_TOL = 1e-2
 LOGIT_TOL = 1e-4        # x max|logit|, card vs CPU (phase 6)
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, non-tensor FP64 rate (the scan and
@@ -333,7 +349,8 @@ def phase_sweep(base, cfg, powers, scale):
         fail("the sweep did not auto-dispatch to the batched backend")
     want = {"prefix_scan": 1 + cfg.n_slots,
             "dispatch_work_prefix": 1 + cfg.n_slots,
-            "dispatch_positions": 0, "flash_attention": 0, "mamba_scan": 0}
+            "dispatch_positions": 0, "flash_attention": 0,
+            "flash_attention_tc": 0, "mamba_scan": 0}
     if launches != want:
         fail(f"launch counts {launches}, expected {want}")
     tasks = sum(r["completed"] for r in results)
@@ -381,9 +398,10 @@ def phase_repeat(results, tensors, cfg):
     return engine_s
 
 
-def device_time_table(fn, wall_s: float, tag: str) -> None:
+def device_time_table(fn, wall_s: float, tag: str, watch=()) -> None:
     """Run ``fn`` once under torch.profiler; log device time by kernel and
-    its share of ``wall_s``, the same work's unprofiled wall time."""
+    its share of ``wall_s``, the same work's unprofiled wall time, and the
+    kernels whose names hold a string of ``watch`` wherever they rank."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -405,6 +423,13 @@ def device_time_table(fn, wall_s: float, tag: str) -> None:
     for dev_us, count, key in sorted(rows, reverse=True)[:15]:
         log(f"[{tag}]   {100 * dev_us / total_us:5.1f}%  "
             f"{dev_us / 1e3:9.2f} ms  x{count:<5d} {key[:90]}")
+    for name in watch:
+        hits = [r for r in rows if name in r[2]]
+        dev_us = sum(r[0] for r in hits)
+        count = sum(r[1] for r in hits)
+        log(f"[{tag}] {name}: {dev_us / 1e3:.4f} ms device time in {count} "
+            f"launches ({dev_us / 1e3 / max(count, 1):.4f} ms each, "
+            f"{100 * dev_us / total_us:.2f}% of the device time)")
 
 
 def phase_profile(tensors, cfg, engine_s):
@@ -447,35 +472,65 @@ def phase_small(dev):
 # the serving path: flash attention and the expert-dispatch positions
 # ---------------------------------------------------------------------------
 
-def padded_positions(lengths, s: int, dev):
-    """(q_positions, kv_positions) of right-padded prompts, as prefill
-    passes them."""
-    pos = torch.arange(s, device=dev).expand(len(lengths), s)
-    lens = torch.as_tensor(np.asarray(lengths), device=dev)[:, None]
-    kv = torch.where(pos < lens, pos, -1).to(torch.int32)
-    return kv.clamp_min(0), kv
-
-
 def flash_check(label, b, h, kv, s, hd, dtype, g, dev, **kw):
-    """The kernel against its plain version; returns max|err| and the
-    inputs. ``lengths`` in ``kw`` selects the position form."""
+    """The kernel against its plain version; returns max|err|, the worst
+    row's relative error and the inputs. ``lengths`` in ``kw`` selects the
+    length form. A bfloat16 call must launch the tensor-core kernel, a
+    float32 one the FMA kernel."""
     q = torch.randn(b, h, s, hd, generator=g).to(dev, dtype)
     k = torch.randn(b, kv, s, hd, generator=g).to(dev, dtype)
     v = torch.randn(b, kv, s, hd, generator=g).to(dev, dtype)
-    lengths = kw.pop("lengths", None)
-    if lengths is not None:
-        kw["q_positions"], kw["kv_positions"] = padded_positions(lengths, s,
-                                                                 dev)
+    if "lengths" in kw:
+        kw["lengths"] = torch.as_tensor(np.asarray(kw["lengths"]),
+                                        dtype=torch.int32, device=dev)
+    before = ops.launch_counts()
     got = ops.flash_attention(q, k, v, **kw).float()
+    after = ops.launch_counts()
     want = ref.flash_attention_ref(q, k, v, **kw).float()
     torch.cuda.synchronize()
+    tc = after["flash_attention_tc"] - before["flash_attention_tc"]
+    if (after["flash_attention"] - before["flash_attention"],
+            tc) != (1, int(dtype == torch.bfloat16)):
+        fail(f"flash_attention {label}: {tc} tensor-core launches for "
+             f"{dtype}")
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     err = (got - want).abs()
+    row = ((got - want).norm(dim=-1)
+           / want.norm(dim=-1).clamp_min(1e-30)).max().item()
     log(f"[kernels] flash_attention {label} {(b, h, kv, s, hd)} "
-        f"{str(dtype)[6:]}: max|err|={err.max().item():.3e}")
+        f"{str(dtype)[6:]} ({'tensor cores' if tc else 'FMA'}): "
+        f"max|err|={err.max().item():.3e}, worst row's relative L2 error "
+        f"{row:.3e}")
     if not bool((err <= tol + tol * want.abs()).all()):
         fail(f"flash_attention {label}: error beyond {tol} (rtol and atol)")
-    return err.max().item(), (q, k, v, kw)
+    if dtype == torch.bfloat16 and not row <= BF16_ROW_TOL:
+        fail(f"flash_attention {label}: a row's relative error {row:.3e} "
+             f"exceeds {BF16_ROW_TOL}")
+    return err.max().item(), row, (q, k, v, kw)
+
+
+def check_tile_plan():
+    """The kernels' own tile rule (``make_plan``, run on the host through
+    the library) against ``flash_attention.tile_plan``, which the CPU tests
+    hold against the plain version's mask: every query tile of a grid of
+    lengths, windows and both masks, at the kernels' 64 x 64 tiles."""
+    n = 0
+    for s in (1, 63, 64, 65, 129, 300, 700, 2048):
+        for length in sorted({1, 2, 63, 64, 65, 200, s // 2 or 1, s}):
+            if length > s:
+                continue
+            for causal in (True, False):
+                for window in (None, 1, 63, 64, 100, 300):
+                    for q0 in range(0, s, 64):
+                        case = (q0, 64, 64, s, length, causal, window)
+                        if flash.cuda_tile_plan(*case) != \
+                                flash.tile_plan(*case):
+                            fail(f"flash tile plan differs at {case}: card "
+                                 f"{flash.cuda_tile_plan(*case)}, rule "
+                                 f"{flash.tile_plan(*case)}")
+                        n += 1
+    log(f"[kernels] flash_attention tile plan: the kernels' rule lists "
+        f"tile_plan's tiles for all {n} query tiles of the grid")
 
 
 def phase_kernels_lm(dev):
@@ -488,19 +543,29 @@ def phase_kernels_lm(dev):
     # right-padded to the bucket as the serve phase's prompts are
     lengths = np.random.default_rng(1).integers(PROMPT_LO, PROMPT_HI + 1,
                                                 size=8)
-    worst, (q, k, v, kw) = flash_check("serve prefill, padded", 8, 16, 8,
-                                       2048, 64, bf16, g, dev,
-                                       lengths=lengths)
+    check_tile_plan()
+    worst, worst_row, (q, k, v, kw) = flash_check(
+        "serve prefill, padded", 8, 16, 8, 2048, 64, bf16, g, dev,
+        lengths=lengths)
     for label, shape, dtype, extra in [
             ("index form", (8, 16, 8, 2048, 64), bf16, {}),
             ("S=1", (2, 16, 8, 1, 64), bf16, {}),
+            ("S=65", (2, 16, 8, 65, 64), bf16, {}),
+            ("S=129", (2, 16, 8, 129, 64), bf16, {}),
             ("S=130", (2, 16, 8, 130, 64), bf16, {}),
+            ("hd=32", (2, 16, 8, 300, 32), bf16, {}),
             ("S=4096", (1, 16, 8, 4096, 64), bf16, {}),
             ("hd=128", (2, 8, 8, 300, 128), bf16, {}),
             ("hd=256", (1, 8, 4, 300, 256), bf16, {}),
             ("hd=256 f32", (1, 8, 4, 300, 256), f32, {}),
             ("rep=1", (2, 8, 8, 256, 64), bf16, {}),
             ("rep=16", (2, 16, 1, 256, 64), bf16, {}),
+            ("rep=16 padded", (4, 16, 1, 300, 64), bf16,
+             {"lengths": [300, 1, 64, 77]}),
+            ("padded window", (4, 16, 8, 700, 64), bf16,
+             {"lengths": [700, 1, 333, 64], "window": 128}),
+            ("padded window+soft-cap hd=128", (3, 8, 4, 500, 128), bf16,
+             {"lengths": [1, 64, 450], "window": 100, "softcap": 30.0}),
             ("window", (2, 16, 8, 1000, 64), bf16, {"window": 256}),
             ("soft-cap", (2, 16, 8, 500, 64), bf16, {"softcap": 50.0}),
             ("f32", (2, 16, 8, 1024, 64), f32, {}),
@@ -510,13 +575,38 @@ def phase_kernels_lm(dev):
              {"lengths": [700, 1, 333, 64]}),
             ("f32 padded window", (4, 16, 8, 700, 64), f32,
              {"lengths": [700, 1, 333, 64], "window": 128})]:
-        flash_check(label, *shape, dtype, g, dev, **extra)
-    flash_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), 10)
-    flash_index_ms = time_ms(lambda: ops.flash_attention(q, k, v), 10)
-    flash_plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 3)
+        _, row, _ = flash_check(label, *shape, dtype, g, dev, **extra)
+        if dtype == bf16:
+            worst_row = max(worst_row, row)
+    log(f"[kernels] flash_attention bfloat16: worst row's relative L2 error "
+        f"over every case {worst_row:.3e} (bound {BF16_ROW_TOL})")
+    first = ops.flash_attention(q, k, v, **kw)
+    if not torch.equal(first, ops.flash_attention(q, k, v, **kw)):
+        fail("flash_attention: two calls on the same inputs differ")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    flash_lib = time_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                     enable_gqa=True), 10)
+    calls = {
+        "kernel": lambda: ops.flash_attention(q, k, v, **kw),
+        "index form": lambda: ops.flash_attention(q, k, v),
+        "SDPA": lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)}
+    # the float32 (FMA) kernel at the same shape and prompts
+    qf, kf, vf = q.float(), k.float(), v.float()
+    calls["float32 kernel"] = lambda: ops.flash_attention(qf, kf, vf, **kw)
+    # events (host issue included) and the profiler's device time, taken in
+    # turns: each call once in order, then once in reverse order
+    ev = {n: [] for n in calls}
+    dv = {n: [] for n in calls}
+    for n in (*calls, *reversed(calls)):
+        ev[n].append(time_ms(calls[n], 10))
+        dv[n].append(device_ms(calls[n], 10))
+    ev = {n: sum(t) / len(t) for n, t in ev.items()}
+    dv = {n: sum(t) / len(t) for n, t in dv.items()}
+    for n in calls:
+        log(f"[kernels] flash_attention timing at (8, 16, 8, 2048, 64), "
+            f"{n}: {ev[n]:.4f} ms by CUDA events, {dv[n]:.4f} ms device "
+            f"time")
+    flash_ms, flash_index_ms, flash_lib = (ev["kernel"], ev["index form"],
+                                           ev["SDPA"])
+    flash_plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), 3)
     b, h, s, hd = q.shape
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     # what these prompts need: causal over the real tokens, one key for
@@ -524,7 +614,8 @@ def phase_kernels_lm(dev):
     pairs = sum(int(n) * (int(n) + 1) // 2 + (s - int(n)) for n in lengths)
     f_bound, f_by = bound_ms(n_bytes, 4 * h * hd * pairs, BF16_OPS_PER_S)
     log(f"[kernels] flash_attention index form at the same shape: "
-        f"{flash_index_ms:.4f} ms (causal over all {s} positions)")
+        f"{flash_index_ms:.4f} ms (causal over all {s} positions, as SDPA "
+        f"computes it: {flash_index_ms / flash_lib:.2f}x SDPA)")
     flash = dict(name="flash_attention", route="cuda",
                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention.py:93",
@@ -654,6 +745,7 @@ def phase_serve(dev):
     n_moe = cfg.n_layers  # every granite layer is MoE
     want = {"prefix_scan": 0, "dispatch_work_prefix": 0, "mamba_scan": 0,
             "flash_attention": cfg.n_layers * n_pre,
+            "flash_attention_tc": cfg.n_layers * n_pre,
             "dispatch_positions": cfg.experts_per_token * n_moe
             * (n_pre + n_dec)}
     log(f"[serve] {len(done)} of {SERVE_REQUESTS} requests finished; "
@@ -702,7 +794,7 @@ def phase_serve_profile(lm, prompts):
     t0 = time.perf_counter()
     short()
     wall = time.perf_counter() - t0
-    device_time_table(short, wall, "serve-profile")
+    device_time_table(short, wall, "serve-profile", watch=("flash_fwd",))
 
 
 def phase_serve_vs_plain(dev):
@@ -919,7 +1011,7 @@ def phase_falcon_serve(dev):
     n_pre, n_dec = counted.calls["prefill"], counted.calls["decode"]
     want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
             "dispatch_positions": 0, "flash_attention": 0,
-            "mamba_scan": cfg.n_layers * n_pre}
+            "flash_attention_tc": 0, "mamba_scan": cfg.n_layers * n_pre}
     log(f"[falcon-serve] {len(done)} of {SSM_REQUESTS} requests finished; "
         f"{n_pre} prefill calls, {n_dec} decode steps; launches {launches}")
     if launches != want or n_pre <= 0:
@@ -1061,7 +1153,7 @@ def phase_hybrid_vs_plain(dev):
     n_moe = cfg.n_layers // cfg.moe_every
     want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
             "mamba_scan": cfg.n_layers - periods,
-            "flash_attention": periods,
+            "flash_attention": periods, "flash_attention_tc": 0,
             "dispatch_positions": cfg.experts_per_token * n_moe}
     if launches != want:
         fail(f"hybrid-vs-plain launch counts {launches}, expected {want}")
@@ -1123,7 +1215,7 @@ def main() -> int:
 
     lm, prompts, launches = phase_serve(dev)
     for k in kernels[2:]:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = launches[k["name"]]   # flash: all on tensor cores
     phase_serve_profile(lm, prompts)
     del lm
     torch.cuda.empty_cache()

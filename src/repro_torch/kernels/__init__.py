@@ -8,7 +8,9 @@ one by the tensor's device:
                   and the MoE expert-dispatch positions, one counter per
                   expert, a block per token group
   flash_attention — causal GQA online-softmax attention, a block per
-                  (batch, head, 64-query tile) walking its KV tiles
+                  (batch, head, 64-query tile) walking only the KV tiles
+                  its rows can see; bf16 on the tensor cores (mma.sync),
+                  float32 on FMAs
   mamba_scan    — the selective scan of Mamba-1, a thread per few channels
                   of a (batch, state) row walking the sequence with h in
                   registers

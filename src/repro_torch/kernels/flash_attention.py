@@ -1,15 +1,21 @@
-"""Hand-written CUDA kernel: flash attention forward (online softmax, GQA,
+"""Hand-written CUDA kernels: flash attention forward (online softmax, GQA,
 causal, optional sliding window and tanh soft-cap, float32 accumulation).
 Source: ``csrc/flash_attention.cu``, which replaces
-``repro/kernels/flash_attention.py::flash_attention_pallas``.
+``repro/kernels/flash_attention.py::flash_attention_pallas``. Two kernels,
+picked by dtype: bfloat16 inputs run on the tensor cores (``mma.sync``,
+cp.async double buffering); float32 inputs keep the float32-FMA kernel,
+since TF32 products would miss the float32 callers' 2e-5 tolerance.
 
-Beyond the Pallas kernel's index mask it takes the model's position mask
-(``q_positions``/``kv_positions``, -1 on right padding), which the LM's
-prefill needs: a padded query then attends to key 0 only, as in
+Beyond the Pallas kernel's index mask both take the prompts' real
+``lengths``, the mask of the LM's prefill over right-padded prompts: a
+padded query then attends to key 0 only, as in
 ``repro.models.attention.chunked_attention``, and its output (which goes on
 through the MoE router and takes expert capacity) matches the JAX model's.
+Both visit only the KV tiles of :func:`tile_plan`; a causal bfloat16 query
+tile wholly in the padding copies V's row 0, the one key its rows see.
 
-``LAUNCHES`` counts the kernel's launches in this process.
+``LAUNCHES`` counts every launch of either kernel in this process,
+``TC_LAUNCHES`` those of the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -19,23 +25,55 @@ import ctypes
 import torch
 
 from . import _build
+from .ref import check_lengths
 
-__all__ = ["flash_attention_cuda", "LAUNCHES"]
+__all__ = ["flash_attention_cuda", "tile_plan", "cuda_tile_plan",
+           "LAUNCHES", "TC_LAUNCHES"]
 
 LAUNCHES = 0
+TC_LAUNCHES = 0
 
-_SIGNATURES = {
-    "flash_attention_fwd": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                            ctypes.c_int64, ctypes.c_int64,
-                            ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
-                            ctypes.c_int, ctypes.c_int64, ctypes.c_float,
-                            ctypes.c_int, ctypes.c_void_p],
-}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
+             ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_KERNELS = {torch.bfloat16: "flash_attention_tc",
+            torch.float32: "flash_attention_f32"}
+_SIGNATURES = {name: _ARGTYPES for name in _KERNELS.values()}
+_SIGNATURES["flash_tile_plan"] = [ctypes.c_int] * 7 + [
+    ctypes.POINTER(ctypes.c_int), ctypes.c_int]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+def tile_plan(q0: int, block_q: int, block_k: int, S: int, L: int,
+              causal: bool, window: int | None) -> list[int]:
+    """The first keys of the KV tiles, of ``block_k`` keys each, that the
+    query block of rows ``[q0, min(q0 + block_q, S))`` visits, in the
+    kernels' order (``make_plan`` in ``csrc/flash_attention.cu``).
+
+    ``L`` is the sequence's real length: S in the index form, L_b in the
+    length form, whose mask is right-padded prefill's (``kv_pos[j] = j``
+    for ``j < L``, -1 beyond, ``q_pos = max(pos, 0)``, ``L >= 1``). Real
+    rows need the keys from the window's left edge to the causal frontier
+    (to L without causality); padded rows see key 0 only (every key below L
+    without causality). Tile 0 comes first when the block holds padded
+    rows.
+
+    The rule the CUDA kernels follow, stated for the CPU tests, which hold
+    it against the plain version's mask; the card tests hold it against
+    the kernels' own rule (``flash_tile_plan`` in the library). Nothing on
+    the path calls it."""
+    q1 = min(q0 + block_q, S)
+    real_end = min(q1, L)
+    n_pad = first = last = 0
+    if max(q0, L) < q1:
+        n_pad = -(-(1 if causal else L) // block_k)
+    if q0 < real_end:
+        first = (max(0, q0 - window + 1) if window else 0) // block_k
+        last = -(-(real_end if causal else L) // block_k)
+    first = max(first, n_pad)
+    tiles = list(range(n_pad)) + list(range(first, max(first, last)))
+    return [t * block_k for t in tiles]
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -50,25 +88,31 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
-                         q_positions=None, kv_positions=None):
+                         lengths=None):
     """q (B, H, S, hd), k and v (B, KV, S, hd) on one CUDA device, float32
     or bfloat16 alike, H % KV == 0, hd <= 256 and a multiple of 8; any
     strides with the head dimension contiguous (the model passes permuted
     (B, S, H, hd) views). Returns (B, H, S, hd) in ``q.dtype``, laid out as
     a permuted (B, S, H, hd) tensor.
 
-    ``q_positions``/``kv_positions`` (B, S) int32 select the position mask
-    (both or neither); they must satisfy ``q_pos[i] <= i`` and ``kv_pos[j]
-    in {j, -1}``, as right-padded prefill gives them."""
-    global LAUNCHES
+    ``lengths`` (B,) integers, each in [1, S], selects the length form:
+    right-padded prompts of ``lengths[b]`` real tokens (see
+    ``ref.flash_attention_ref``'s ``lengths``). A CPU tensor's values are
+    checked; a card tensor's are not (that would sync), and the kernels
+    clamp them to [1, S]. The kernels visit only the KV tiles that the mask
+    admits (:func:`tile_plan`)."""
+    global LAUNCHES, TC_LAUNCHES
+    entry = _KERNELS.get(q.dtype)
+    if entry is None:
+        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_cuda takes q, k, v of one type, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention_cuda needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16 "
-                        f"q, k, v of one type, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, H, S, hd) and k, v (B, KV, S, hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -83,21 +127,13 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
                          f"got {hd}")
     if b * h > 65535:
         raise ValueError(f"B * H = {b * h} exceeds the grid's 65,535")
-    if (q_positions is None) != (kv_positions is None):
-        raise ValueError("give both q_positions and kv_positions, or neither")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if q_positions is not None:
-        q_positions = q_positions.to(device=dev, dtype=torch.int32)
-        kv_positions = kv_positions.to(device=dev, dtype=torch.int32)
-        if q_positions.shape != (b, s) or kv_positions.shape != (b, s):
-            raise ValueError(f"positions must be (B, S) = {(b, s)}, got "
-                             f"{tuple(q_positions.shape)} and "
-                             f"{tuple(kv_positions.shape)}")
-        q_positions = q_positions.contiguous()
-        kv_positions = kv_positions.contiguous()
+    if lengths is not None:
+        check_lengths(lengths, b, s, values=lengths.device.type == "cpu")
+        lengths = lengths.to(device=dev, dtype=torch.int32)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=dev)
     out = out.permute(0, 2, 1, 3)
@@ -106,15 +142,30 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     lib = _build.load("flash_attention", _SIGNATURES)
-    err = lib.flash_attention_fwd(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(),
-        None if q_positions is None else q_positions.data_ptr(),
-        None if kv_positions is None else kv_positions.data_ptr(),
-        b, h, kvh, s, hd, strides, hd ** -0.5, int(bool(causal)),
+    err = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lengths is None else lengths.data_ptr(), b, h, kvh, s, hd,
+        strides, hd ** -0.5, int(bool(causal)),
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), dev.index,
         _build.stream_of(q))
-    _build.check("flash_attention", "flash_attention", err)
+    _build.check("flash_attention", entry, err)
     LAUNCHES += 1
+    if entry == "flash_attention_tc":
+        TC_LAUNCHES += 1
     return out
+
+
+def cuda_tile_plan(q0: int, block_q: int, block_k: int, S: int, L: int,
+                   causal: bool, window: int | None) -> list[int]:
+    """:func:`tile_plan` as the CUDA library computes it (``make_plan``,
+    which both kernels run, called on the host); builds the library, so it
+    needs ``nvcc``."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    cap = -(-S // block_k) + 1
+    starts = (ctypes.c_int * cap)()
+    n = lib.flash_tile_plan(q0, block_q, block_k, S, L, int(bool(causal)),
+                            window or 0, starts, cap)
+    if not 0 <= n <= cap:
+        raise RuntimeError(f"flash_tile_plan gave {n} tiles (at most {cap})")
+    return list(starts[:n])

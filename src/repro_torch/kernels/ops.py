@@ -56,17 +56,17 @@ def dispatch_positions(expert_idx: torch.Tensor, base: torch.Tensor,
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
-                    q_positions=None, kv_positions=None):
+                    lengths=None):
     """Attention of q (B, H, S, hd) over k, v (B, KV, S, hd), output in
-    ``q.dtype``: the index mask, or with ``q_positions``/``kv_positions``
-    (B, S) the model's position mask (see ``ref.flash_attention_ref``)."""
+    ``q.dtype``: the index mask, or with ``lengths`` (B,) the mask of
+    right-padded prompts of those real lengths, each in [1, S] (see
+    ``ref.flash_attention_ref``)."""
     if _on_cuda(q):
         return _flash.flash_attention_cuda(
             q, k, v, causal=causal, window=window, softcap=softcap,
-            q_positions=q_positions, kv_positions=kv_positions)
+            lengths=lengths)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, q_positions=q_positions,
-                                   kv_positions=kv_positions)
+                                   softcap=softcap, lengths=lengths)
 
 
 def mamba_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
@@ -78,11 +78,14 @@ def mamba_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
 
 
 def launch_counts() -> dict[str, int]:
-    """CUDA launches of each kernel in this process."""
+    """CUDA launches of each kernel in this process; ``flash_attention``
+    counts both flash kernels, ``flash_attention_tc`` the tensor-core
+    (bfloat16) one alone."""
     return {"prefix_scan": _scan.LAUNCHES,
             "dispatch_work_prefix": _dispatch.LAUNCHES,
             "dispatch_positions": _dispatch.POSITION_LAUNCHES,
             "flash_attention": _flash.LAUNCHES,
+            "flash_attention_tc": _flash.TC_LAUNCHES,
             "mamba_scan": _mamba.LAUNCHES}
 
 
@@ -91,4 +94,5 @@ def reset_launch_counts() -> None:
     _dispatch.LAUNCHES = 0
     _dispatch.POSITION_LAUNCHES = 0
     _flash.LAUNCHES = 0
+    _flash.TC_LAUNCHES = 0
     _mamba.LAUNCHES = 0

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["prefix_scan_ref", "dispatch_work_prefix_ref",
-           "dispatch_positions_ref", "flash_attention_ref", "mamba_scan_ref"]
+           "dispatch_positions_ref", "check_lengths", "prefill_positions",
+           "flash_attention_ref", "mamba_scan_ref"]
 
 _NEG = -2.0 ** 30  # the attention mask value, as in the JAX package
 
@@ -102,8 +103,34 @@ def dispatch_positions_ref(expert_idx: torch.Tensor, base: torch.Tensor,
     return pos, fill
 
 
+def check_lengths(lengths: torch.Tensor, b: int, s: int, *,
+                  values: bool = True) -> None:
+    """Refuses prompt ``lengths`` unless they are (B,) integers, each in
+    [1, S]; the values are read only with ``values`` (on a card tensor
+    that costs a sync)."""
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths must be (B,) = ({b},), got "
+                         f"{tuple(lengths.shape)}")
+    if lengths.dtype.is_floating_point or lengths.dtype == torch.bool:
+        raise TypeError(f"lengths must be integers, got {lengths.dtype}")
+    if values and b and not (1 <= int(lengths.min())
+                             and int(lengths.max()) <= s):
+        raise ValueError(f"every length must lie in [1, S = {s}], got "
+                         f"{lengths.tolist()}")
+
+
+def prefill_positions(lengths: torch.Tensor, s: int):
+    """(q_positions, kv_positions) (B, S) int32 of right-padded prompts of
+    ``lengths`` (B,) real tokens: ``kv_pos[b, j] = j`` for ``j < L_b``, -1
+    beyond, and ``q_pos = max(kv_pos, 0)``, as the LM's prefill masks."""
+    check_lengths(lengths, lengths.shape[0], s)
+    pos = torch.arange(s, device=lengths.device).expand(lengths.shape[0], s)
+    kv = torch.where(pos < lengths[:, None], pos, -1).to(torch.int32)
+    return kv.clamp_min(0), kv
+
+
 def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
-                        q_positions=None, kv_positions=None):
+                        q_positions=None, kv_positions=None, lengths=None):
     """Full-materialisation attention, in float32, output in ``q.dtype``.
 
     q (B, H, S, hd); k, v (B, KV, S, hd) with H % KV == 0 (query head h
@@ -114,6 +141,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     (``repro.models.attention.chunked_attention``): key j is seen by query i
     iff ``kv_pos[j] >= 0`` and, causal, ``q_pos[i] >= kv_pos[j]`` and, with a
     window, ``q_pos[i] - kv_pos[j] < window``. Masked logits are -2**30.
+    ``lengths`` (B,) in place of the positions is the flash kernels' length
+    form, the positions of :func:`prefill_positions`.
     """
     b, h, s, hd = q.shape
     rep = h // k.shape[1]
@@ -122,6 +151,13 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) * hd ** -0.5
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
+    if lengths is not None:
+        if q_positions is not None or kv_positions is not None:
+            raise ValueError("give lengths or positions, not both")
+        check_lengths(lengths, b, s, values=False)
+        q_positions, kv_positions = prefill_positions(lengths, s)
+    if (q_positions is None) != (kv_positions is None):
+        raise ValueError("give both q_positions and kv_positions, or neither")
     if q_positions is None:
         idx = torch.arange(s, device=q.device)
         q_pos, kv_pos = idx.expand(b, s), idx.expand(b, s)

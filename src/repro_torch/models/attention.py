@@ -99,13 +99,11 @@ def _project_qkv(p, x, cfg, positions, compute_dtype):
     return q, k, v
 
 
-def _flash(q, k, v, *, window, softcap, q_positions=None,
-           kv_positions=None):
+def _flash(q, k, v, *, window, softcap, lengths=None):
     """ops.flash_attention on the model's (B, S, H, hd) layout."""
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=window, softcap=softcap,
-        q_positions=q_positions, kv_positions=kv_positions)
+        causal=True, window=window, softcap=softcap, lengths=lengths)
     return out.transpose(1, 2)                  # (B, S, H, hd)
 
 
@@ -136,22 +134,23 @@ def attn_train(p, x, cfg, *, positions=None, is_global=True):
     return dense(p["wo"], out.reshape(b, s, -1), compute_dtype)
 
 
-def attn_prefill(p, x, cfg, cache: KVCache, *, positions, is_global=True):
+def attn_prefill(p, x, cfg, cache: KVCache, *, lengths, is_global=True):
     """Prompt processing: full self-attention AND KV-cache population.
 
-    positions: (B, S) with -1 on right padding (padded keys are masked, a
-    padded query sees key 0 only, the cache rows beyond each sequence's
-    length are never read by decode). Writes rows ``[0, S)`` of ``cache``
-    (B, L, KV, hd) in place. Returns (y, cache).
+    lengths: (B,) int32 real lengths of the right-padded prompts, each in
+    [1, S]; the JAX package's positions are ``j`` below the length and -1
+    beyond (padded keys are masked, a padded query sees key 0 only, the
+    cache rows beyond each sequence's length are never read by decode).
+    Writes rows ``[0, S)`` of ``cache`` (B, L, KV, hd) in place. Returns
+    (y, cache).
     """
     compute_dtype = x.dtype
     b, s, _ = x.shape
-    safe_pos = positions.clamp_min(0)
+    pos = torch.arange(s, device=x.device).expand(b, s)
+    safe_pos = torch.where(pos < lengths[:, None], pos, 0)
     q, k, v = _project_qkv(p, x, cfg, safe_pos, compute_dtype)
-    i32 = torch.int32
     out = _flash(q, k, v, window=None if is_global else cfg.sliding_window,
-                 softcap=cfg.attn_logit_softcap,
-                 q_positions=safe_pos.to(i32), kv_positions=positions.to(i32))
+                 softcap=cfg.attn_logit_softcap, lengths=lengths)
     y = dense(p["wo"], out.reshape(b, s, -1), compute_dtype)
     cache.k[:, :s] = k.to(cache.k.dtype)
     cache.v[:, :s] = v.to(cache.v.dtype)

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..kernels.ref import check_lengths
 from .attention import (
     Attention,
     KVCache,
@@ -379,20 +380,22 @@ class LM(nn.Module):
     def prefill(self, cache, tokens, lengths):
         """Process right-padded prompts and populate the cache.
 
-        tokens: (B, S); lengths: (B,) real lengths (<= S <= cache max_len).
+        tokens: (B, S); lengths: (B,) real lengths, each in [1, S] (S <=
+        cache max_len; checked when they are given on the host).
         Returns (last-token logits (B, V) float32, cache)."""
         cfg = self.cfg
         w = self.weights()
         tokens = self._as_long(tokens)
-        lengths = self._as_long(lengths)
         b, s = tokens.shape
+        lengths = torch.as_tensor(lengths)
+        check_lengths(lengths, b, s, values=lengths.device.type == "cpu")
+        lengths = lengths.to(device=self.device, dtype=torch.int32)
         pos = torch.arange(s, device=self.device).expand(b, s)
         mask = pos < lengths[:, None]
-        positions = torch.where(mask, pos, -1)
 
         def mix(kind, p, h, c, is_global):
             if kind == "attn":
-                return attn_prefill(p, h, cfg, c, positions=positions,
+                return attn_prefill(p, h, cfg, c, lengths=lengths,
                                     is_global=is_global)[0]
             return ssm_prefill(p, h, cfg, c, mask=mask)[0]
 
@@ -402,7 +405,7 @@ class LM(nn.Module):
             x, _ = self._stage(sp, x, mix, is_global, _at(cache, i))
         x = self._norm(w["final_norm"], x)
         last = x[torch.arange(b, device=self.device),
-                 (lengths - 1).clamp_min(0)]               # (B, d)
+                 (lengths - 1).clamp_min(0).long()]        # (B, d)
         return self._logits(w, last), cache
 
     @torch.no_grad()

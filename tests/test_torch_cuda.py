@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, and the batched
+"""The CUDA kernels against their plain PyTorch versions (flash attention:
+its tensor-core bfloat16 kernel and its float32 one), and the batched
 engine on the card against its CPU run. These need an NVIDIA GPU with
 ``nvcc``; without one they skip. Run them on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
@@ -6,7 +7,10 @@ engine on the card against its CPU run. These need an NVIDIA GPU with
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops, ref
 from repro_torch.runtime import (
     VectorConfig,
@@ -16,6 +20,26 @@ from repro_torch.runtime import (
 )
 
 pytestmark = pytest.mark.cuda
+
+# bfloat16 flash: each output row (over hd) within 1e-2 of the plain
+# version's in relative L2 norm (bf16 rounding of P and of the output gives
+# ~3e-3; a dropped or leaked key tile 0.1 or more), and every element within
+# the JAX package's 3e-2 (rtol and atol)
+BF16_ROW_TOL = 1e-2
+BF16_TOL = 3e-2
+
+
+def _row_rel_err(got, want):
+    """max over output rows of ||got - want|| / ||want||, over hd."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1)
+            / want.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def _assert_bf16_close(got, want):
+    assert _row_rel_err(got, want) <= BF16_ROW_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
 
 
 @pytest.fixture
@@ -125,31 +149,149 @@ def test_flash_kernel_matches_plain(cuda, b, h, kv, s, hd, dtype, window,
     got = ops.flash_attention(q, k, v, window=window, softcap=softcap)
     assert ops.launch_counts()["flash_attention"] == before + 1
     want = ref.flash_attention_ref(q, k, v, window=window, softcap=softcap)
-    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
     assert got.dtype == dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        _assert_bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_flash_kernel_position_form_matches_plain(cuda):
-    """Right-padded prompts as prefill passes them: kv_pos = -1 on padding,
-    q_pos = max(pos, 0); the model's (B, S, H, hd) views go in unpermuted."""
+    """Right-padded prompts as prefill passes them, by their lengths (the
+    positions kv_pos = -1 on padding, q_pos = max(pos, 0)); the model's
+    (B, S, H, hd) views go in unpermuted."""
     b, s, h, kv, hd = 4, 300, 8, 4, 64
     g = torch.Generator().manual_seed(7)
     q = torch.randn(b, s, h, hd, generator=g).to(cuda)
     k = torch.randn(b, s, kv, hd, generator=g).to(cuda)
     v = torch.randn(b, s, kv, hd, generator=g).to(cuda)
     lengths = torch.tensor([300, 1, 77, 129], device=cuda)
-    pos = torch.arange(s, device=cuda).expand(b, s)
-    kv_pos = torch.where(pos < lengths[:, None], pos, -1).to(torch.int32)
-    q_pos = kv_pos.clamp_min(0)
+    q_pos, kv_pos = ref.prefill_positions(lengths, s)
     for window in (None, 40):
         args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        got = ops.flash_attention(*args, window=window, q_positions=q_pos,
-                                  kv_positions=kv_pos)
+        got = ops.flash_attention(*args, window=window, lengths=lengths)
         want = ref.flash_attention_ref(*args, window=window,
                                        q_positions=q_pos,
                                        kv_positions=kv_pos)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _check_tc(q, k, v, **kw):
+    """One bfloat16 call: a tensor-core launch, within 1e-2 of the plain
+    version in each row's relative norm and within the JAX package's bf16
+    tolerance element by element."""
+    before = ops.launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    after = ops.launch_counts()
+    assert after["flash_attention_tc"] == before["flash_attention_tc"] + 1
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _assert_bf16_close(got, want)
+    return got
+
+
+@pytest.mark.parametrize("s", [1, 65, 129, 2048])
+@pytest.mark.parametrize("hd,h,kv", [(32, 4, 4), (64, 16, 8), (64, 16, 1),
+                                     (128, 8, 4), (256, 4, 2)])
+def test_flash_tc_kernel_matches_plain(cuda, s, hd, h, kv):
+    """Head widths 32-256 (HD 64, 128, 256 with zero-filled columns), GQA
+    groups of 1, 2 and 16, ragged sequence ends."""
+    g = torch.Generator().manual_seed(s * hd + kv)
+    q = torch.randn(2, h, s, hd, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(2, kv, s, hd, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(2, kv, s, hd, generator=g).to(cuda, torch.bfloat16)
+    _check_tc(q, k, v)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 48, None), (True, None, 30.0), (True, 100, 20.0),
+    (False, None, None), (False, 70, None)])
+def test_flash_tc_kernel_window_softcap(cuda, causal, window, softcap):
+    g = torch.Generator().manual_seed(11)
+    q = torch.randn(2, 8, 700, 64, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(2, 4, 700, 64, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(2, 4, 700, 64, generator=g).to(cuda, torch.bfloat16)
+    _check_tc(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("hd,kv", [(64, 8), (64, 1), (128, 4), (32, 2)])
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_tc_kernel_position_form(cuda, hd, kv, window):
+    """Right-padded prompts of lengths 1, 64, 77 and S, the model's
+    (B, S, H, hd) views passed unpermuted: the KV tiles past each length
+    and, for wholly padded query tiles, all but tile 0 are skipped."""
+    b, s, h = 4, 300, 16
+    g = torch.Generator().manual_seed(hd + kv)
+    q = torch.randn(b, s, h, hd, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(b, s, kv, hd, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(b, s, kv, hd, generator=g).to(cuda, torch.bfloat16)
+    _check_tc(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+              window=window,
+              lengths=torch.tensor([1, 64, 77, s], device=cuda))
+
+
+def test_flash_tc_counter_and_repeat(cuda):
+    """flash_attention_tc counts each bfloat16 call and no float32 one; two
+    calls on the same inputs give the same bits."""
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 16, 2048, 64, generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn(2, 8, 2048, 64, generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn(2, 8, 2048, 64, generator=g).to(cuda, torch.bfloat16)
+    kw = dict(lengths=torch.tensor([1777, 300], device=cuda))
+    ops.reset_launch_counts()
+    a = ops.flash_attention(q, k, v, **kw)
+    b = ops.flash_attention(q, k, v, **kw)
+    ops.flash_attention(q.float(), k.float(), v.float(), **kw)
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_tc"]) == (3, 2)
+    assert torch.equal(a, b)
+
+
+_PLAN_CASES = dict(s=st.integers(1, 700), length=st.integers(1, 700),
+                   causal=st.booleans(),
+                   window=st.one_of(st.none(), st.integers(1, 300)))
+_CARD_SETTINGS = dict(deadline=None, suppress_health_check=[
+    HealthCheck.function_scoped_fixture])
+
+
+@settings(max_examples=200, **_CARD_SETTINGS)
+@given(block_q=st.sampled_from([64, 128]),
+       block_k=st.sampled_from([64, 128]), **_PLAN_CASES)
+def test_flash_tile_plan_is_the_kernels(cuda, s, length, causal, window,
+                                        block_q, block_k):
+    """The CUDA library's own tile rule (make_plan, which both kernels
+    run, called on the host) lists the tiles of ``tile_plan``, which the
+    CPU tests hold against the plain version's mask."""
+    length = min(length, s)
+    for q0 in range(0, s, block_q):
+        assert flash.cuda_tile_plan(q0, block_q, block_k, s, length, causal,
+                                    window) == flash.tile_plan(
+            q0, block_q, block_k, s, length, causal, window)
+
+
+@settings(max_examples=40, **_CARD_SETTINGS)
+@given(**_PLAN_CASES)
+def test_flash_kernels_follow_the_plan(cuda, s, length, causal, window):
+    """Both kernels on the card, where a tile skipped wrongly or visited
+    unmasked would show: float32 within 2e-5 of the plain version, bfloat16
+    within its row and element bounds; index form when L = S."""
+    length = min(length, s)
+    g = torch.Generator().manual_seed(s * 701 + length)
+    q = torch.randn(2, 4, s, 64, generator=g)
+    k = torch.randn(2, 2, s, 64, generator=g)
+    v = torch.randn(2, 2, s, 64, generator=g)
+    kw = dict(causal=causal, window=window)
+    if length < s:
+        kw["lengths"] = torch.tensor([length, s], device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [x.to(cuda, dtype) for x in (q, k, v)]
+        got = ops.flash_attention(*args, **kw)
+        want = ref.flash_attention_ref(*args, **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        else:
+            _assert_bf16_close(got, want)
 
 
 @pytest.mark.parametrize("b,s,n,di,dtype,padded", [

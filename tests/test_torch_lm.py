@@ -110,6 +110,18 @@ def test_prefill_then_decode_match_jax(pair):
     _close_cache(cache, want_cache)
 
 
+@pytest.mark.parametrize("bad", [0, max(LENGTHS) + 1])
+def test_prefill_refuses_lengths_outside_1_to_s(pair, bad):
+    """Every prompt holds at least one token and fits the batch's width:
+    host lengths outside [1, S] are refused before any layer runs (the
+    flash kernels' length form takes them unchecked on the card)."""
+    cfg, jlm, params, lm = pair
+    toks, lens = _prompts(cfg)
+    lens[1] = bad
+    with pytest.raises(ValueError, match=r"\[1, S = 32\]"):
+        lm.prefill(lm.init_cache(len(lens), MAX_LEN), toks, lens)
+
+
 def test_apply_matches_jax(pair):
     cfg, jlm, params, lm = pair
     toks = np.random.default_rng(1).integers(
