@@ -9,7 +9,13 @@ Phases, each fatal on failure:
              per source, all at once) into build/repro_torch_kernels.
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the main path's shapes and at edge shapes; times of the
-             kernel, the plain version and the library yardstick. Every
+             kernel, the plain version and the library yardstick. The FIFO
+             dispatch prefix's two full-shape calls (the slot wave and the
+             per-slot totals) are also held bit for bit against the ordered
+             loop on two rows each, and timed each with its bound. The MoE
+             dispatch positions over all k levels (one launch) equal the
+             plain version exactly at granite's prefill and decode, with
+             overflowing levels, E = 1, 300 and 5000. Every
              bfloat16 flash case must run the tensor-core kernel (its own
              launch counter), every float32 one the FMA kernel; a bfloat16
              case passes when each output row lies within 1e-2 of the plain
@@ -37,8 +43,9 @@ Phases, each fatal on failure:
              prompt lengths uniform in 256..2048, 64 new tokens each, greedy.
              The launch counters are zeroed just before and read just after
              and must equal 24 flash launches per prefill call, every one on
-             the tensor cores, and 8 x 24 dispatch-positions launches per
-             prefill call and decode step;
+             the tensor cores, and 24 dispatch-positions launches (one per
+             MoE layer, all 8 priority levels) per prefill call and decode
+             step;
              a second run must repeat every token; one more short run under
              torch.profiler gives device time by kernel, flash's included.
 6. serve-vs-plain — the same config with 2 layers in float32, the same
@@ -223,6 +230,19 @@ def dispatch_err(idx, w, e):
     return rel, absd
 
 
+def ordered_loop(idx_row, w_row, e):
+    """The FIFO prefix of one row as simulate_scalar sums it: acc[d] += w in
+    token order, in Python floats (IEEE float64). Returns (prefix, fill)."""
+    acc = [0.0] * e
+    out = [0.0] * len(idx_row)
+    for j, (d, x) in enumerate(zip(idx_row, w_row)):
+        if 0 <= d < e:
+            out[j] = acc[d]
+            acc[d] += x
+    return (torch.tensor(out, dtype=torch.float64),
+            torch.tensor(acc, dtype=torch.float64))
+
+
 def scenario() -> lab.Scenario:
     return lab.Scenario(
         cluster=lab.ClusterSpec(n_nodes=N_NODES, power_low=1, power_high=10,
@@ -312,23 +332,50 @@ def phase_kernels(dev, slot, works, cfg):
             fail(f"dispatch_work_prefix {label}: rel error {rel} > 1e-12")
         if label.startswith("slot wave"):
             worst = absd
-    disp_ms = time_ms(lambda: ops.dispatch_work_prefix(wave_idx, wave_w, n),
-                      10)
-    disp_plain = time_ms(
-        lambda: ref.dispatch_work_prefix_ref(wave_idx, wave_w, n), 3)
-    n_valid = int(mask.sum())
-    disp_bound, disp_by = bound_ms(B * M * (4 + 8) + n_valid * 8 + B * n * 8,
-                                   n_valid)
+    # the two full-shape calls bit for bit the ordered loop, on sampled rows
+    for label, idx, w, e in cases[:2]:
+        prefix, fill = ops.dispatch_work_prefix(idx, w, e)
+        for row in (0, B - 1):
+            t0 = time.perf_counter()
+            want_p, want_f = ordered_loop(idx[row].tolist(), w[row].tolist(),
+                                          e)
+            if not (torch.equal(prefix[row].cpu(), want_p)
+                    and torch.equal(fill[row].cpu(), want_f)):
+                fail(f"dispatch_work_prefix {label} row {row}: not bit for "
+                     f"bit the ordered loop")
+            log(f"[kernels] dispatch_work_prefix {label} row {row}: prefix "
+                f"and fill bit for bit the ordered loop "
+                f"({time.perf_counter() - t0:.1f}s)")
+    # each full-shape call timed, beside its bound and its plain version:
+    # 4 B read per token, 8 B written per prefix, 8 B read per valid weight,
+    # 8 B written per fill cell; one float64 add per valid token
+    timed = {}
+    for label, idx, w, e in cases[:2]:
+        n_valid = int(((idx >= 0) & (idx < e)).sum())
+        bound, by = bound_ms(B * M * (4 + 8) + n_valid * 8 + B * e * 8,
+                             n_valid)
+        timed[label] = dict(
+            ms=time_ms(lambda: ops.dispatch_work_prefix(idx, w, e), 10),
+            plain_ms=time_ms(lambda: ref.dispatch_work_prefix_ref(idx, w, e),
+                             2),
+            bound_ms=bound, bound_by=by, valid=n_valid)
+        log(f"[kernels] dispatch_work_prefix {label} at {[B, M]}, E={e}, "
+            f"{n_valid} valid tokens: {timed[label]['ms']:.4f} ms, plain "
+            f"{timed[label]['plain_ms']:.4f} ms, library None, bound "
+            f"{bound:.4f} ms ({by}), {100 * bound / timed[label]['ms']:.1f}% "
+            f"of it")
+    wave, tot = timed[cases[0][0]], timed[cases[1][0]]
     disp = dict(name="dispatch_work_prefix", route="cuda",
                 source="src/repro_torch/kernels/csrc/psts_dispatch.cu",
                 replaces="src/repro/kernels/psts_dispatch.py:98",
-                max_abs_err=worst, ms=disp_ms, plain_ms=disp_plain,
-                bound_ms=disp_bound, bound_by=disp_by, library_ms=None,
-                shape=[B, M])
-    for k in (scan, disp):
-        log(f"[kernels] {k['name']} at {k['shape']}: {k['ms']:.4f} ms, "
-            f"plain {k['plain_ms']:.4f} ms, library {k['library_ms']}, "
-            f"bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
+                max_abs_err=worst, ms=wave["ms"], plain_ms=wave["plain_ms"],
+                bound_ms=wave["bound_ms"], bound_by=wave["bound_by"],
+                library_ms=None, shape=[B, M],
+                totals_ms=tot["ms"], totals_plain_ms=tot["plain_ms"],
+                totals_bound_ms=tot["bound_ms"])
+    log(f"[kernels] {scan['name']} at {scan['shape']}: {scan['ms']:.4f} ms, "
+        f"plain {scan['plain_ms']:.4f} ms, library {scan['library_ms']}, "
+        f"bound {scan['bound_ms']:.4f} ms ({scan['bound_by']})")
     return [scan, disp]
 
 
@@ -437,7 +484,7 @@ def phase_profile(tensors, cfg, engine_s):
     torch.profiler, device time by kernel, and the busy share of the
     unprofiled engine time."""
     device_time_table(lambda: _simulate_batch_torch(*tensors, cfg), engine_s,
-                      "profile")
+                      "profile", watch=("work_prefix",))
 
 
 def phase_small(dev):
@@ -646,26 +693,65 @@ def phase_kernels_lm(dev):
         if not same:
             fail(f"dispatch_positions {label}: differs from the plain version")
         cases.append((idx, base, e))
-    idx, base, e = cases[0]
+    # -- all k priority levels of a MoE layer in one launch: granite's
+    # prefill and decode at its capacities, a capacity the levels overflow,
+    # E = 1, E = 300, and E = 5000 (the ordered-claim path)
+    cfg = get_config(ARCH)
+    k, e = cfg.experts_per_token, cfg.n_experts
+    cap_pre = moe_mod.moe_capacity(2048, k, e, cfg.capacity_factor)
+    cap_dec = moe_mod.moe_capacity(1, k, e, cfg.capacity_factor)
+    level_cases = []
+    for label, r, t, kk, ee, cap, frac in [
+            (f"prefill (8, 2048, k={k}), E={e}, C={cap_pre}", 8, 2048, k, e,
+             cap_pre, 1.0),
+            (f"decode (8, 1, k={k}), E={e}, C={cap_dec}", 8, 1, k, e,
+             cap_dec, 1.0),
+            ("overflow C=100", 8, 2048, k, e, 100, 0.95),
+            ("E=1", 4, 3000, 2, 1, 700, 0.8),
+            ("E=300", 4, 3000, 4, 300, 20, 0.7),
+            ("E=5000, ordered claims", 2, 3000, 3, 5000, 1, 0.5)]:
+        topk = torch.randint(0, ee, (r, t, kk), generator=g,
+                             dtype=torch.int32)
+        keep = torch.rand(r, t, kk, generator=g) < frac
+        topk = torch.where(keep, topk, torch.full_like(topk, -1)).to(dev)
+        got = ops.dispatch_positions_levels(topk, ee, cap)
+        want = ref.dispatch_positions_levels_ref(topk, ee, cap)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        dropped = int((~want[1]).sum())
+        log(f"[kernels] dispatch_positions_levels {label} {(r, t, kk)}: "
+            f"{'exact' if same else 'DIFFERS'} ({dropped} slots dropped)")
+        if not same:
+            fail(f"dispatch_positions_levels {label}: differs from the plain "
+                 f"version")
+        level_cases.append((topk, ee, cap))
+    topk, ee, cap = level_cases[0]
     # a launch is shorter than its issue time: time the card by the
-    # profiler, and show the event-timed issue rate beside it
-    pos_issue = time_ms(lambda: ops.dispatch_positions(idx, base, e), 100)
-    plain_issue = time_ms(lambda: ref.dispatch_positions_ref(idx, base, e),
-                          20)
-    pos_ms = device_ms(lambda: ops.dispatch_positions(idx, base, e), 100)
-    pos_plain = device_ms(lambda: ref.dispatch_positions_ref(idx, base, e),
-                          20)
-    log(f"[kernels] dispatch_positions back-to-back by CUDA events (host "
-        f"issue-bound): kernel {pos_issue:.4f} ms, plain {plain_issue:.4f} "
-        f"ms per call")
-    r, t = idx.shape
-    p_bound, p_by = bound_ms(2 * 4 * r * t + 2 * 4 * r * e, 0)
+    # profiler, and show the event-timed issue rate beside it; the k
+    # single-level launches the MoE layer made before, for comparison
+    one = cases[0]
+    calls = {
+        "levels kernel": lambda: ops.dispatch_positions_levels(topk, ee, cap),
+        "levels plain": lambda: ref.dispatch_positions_levels_ref(
+            topk, ee, cap),
+        f"{k} single-level launches": lambda: [
+            ops.dispatch_positions(*one) for _ in range(k)]}
+    issue = {n: time_ms(fn, 100) for n, fn in calls.items()}
+    dev_t = {n: device_ms(fn, 50) for n, fn in calls.items()}
+    for n in calls:
+        log(f"[kernels] dispatch_positions {n} at (8, 2048, k={k}): "
+            f"{dev_t[n]:.4f} ms device time, {issue[n]:.4f} ms a call back "
+            f"to back by CUDA events (host issue included)")
+    r, t, kk = topk.shape
+    # read T k experts, write T k positions and keep flags, E fills
+    p_bound, p_by = bound_ms(r * t * kk * (4 + 4 + 1) + r * ee * 4, 0)
     positions = dict(name="dispatch_positions", route="cuda",
                      source="src/repro_torch/kernels/csrc/psts_dispatch.cu",
                      replaces="src/repro/kernels/psts_dispatch.py:46",
-                     max_abs_err=0.0, ms=pos_ms, plain_ms=pos_plain,
-                     bound_ms=p_bound, bound_by=p_by, library_ms=None,
-                     shape=[r, t, e])
+                     max_abs_err=0.0, ms=dev_t["levels kernel"],
+                     plain_ms=dev_t["levels plain"], bound_ms=p_bound,
+                     bound_by=p_by, library_ms=None, shape=[r, t, kk, ee],
+                     issue_ms=issue["levels kernel"])
     for rec in (flash, positions):
         log(f"[kernels] {rec['name']} at {rec['shape']}: {rec['ms']:.4f} "
             f"ms, plain {rec['plain_ms']:.4f} ms, library "
@@ -746,8 +832,7 @@ def phase_serve(dev):
     want = {"prefix_scan": 0, "dispatch_work_prefix": 0, "mamba_scan": 0,
             "flash_attention": cfg.n_layers * n_pre,
             "flash_attention_tc": cfg.n_layers * n_pre,
-            "dispatch_positions": cfg.experts_per_token * n_moe
-            * (n_pre + n_dec)}
+            "dispatch_positions": n_moe * (n_pre + n_dec)}
     log(f"[serve] {len(done)} of {SERVE_REQUESTS} requests finished; "
         f"{n_pre} prefill calls, {n_dec} decode steps; launches {launches}")
     if launches != want or min(want["flash_attention"],
@@ -794,7 +879,8 @@ def phase_serve_profile(lm, prompts):
     t0 = time.perf_counter()
     short()
     wall = time.perf_counter() - t0
-    device_time_table(short, wall, "serve-profile", watch=("flash_fwd",))
+    device_time_table(short, wall, "serve-profile",
+                      watch=("flash_fwd", "positions_levels"))
 
 
 def phase_serve_vs_plain(dev):
@@ -1154,7 +1240,7 @@ def phase_hybrid_vs_plain(dev):
     want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
             "mamba_scan": cfg.n_layers - periods,
             "flash_attention": periods, "flash_attention_tc": 0,
-            "dispatch_positions": cfg.experts_per_token * n_moe}
+            "dispatch_positions": n_moe}
     if launches != want:
         fail(f"hybrid-vs-plain launch counts {launches}, expected {want}")
     if len(on_card) != n_moe or len(on_host) != n_moe:
@@ -1233,8 +1319,10 @@ def main() -> int:
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in kernels]}))
+    print(json.dumps({"kernels": [
+        {k: rec[k] for k in keys} | {k: v for k, v in rec.items()
+                                     if k not in keys}
+        for rec in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

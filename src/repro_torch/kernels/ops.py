@@ -16,8 +16,8 @@ from . import psts_dispatch as _dispatch
 from . import ref
 
 __all__ = ["prefix_scan", "dispatch_work_prefix", "dispatch_positions",
-           "flash_attention", "mamba_scan", "launch_counts",
-           "reset_launch_counts"]
+           "dispatch_positions_levels", "flash_attention", "mamba_scan",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -38,7 +38,8 @@ def prefix_scan(x: torch.Tensor) -> torch.Tensor:
 def dispatch_work_prefix(expert_idx: torch.Tensor, weights: torch.Tensor,
                          n_experts: int):
     """``(prefix (R, T), fill (R, E))``: per row, the weight of earlier
-    same-destination tokens and the per-destination totals."""
+    same-destination tokens and the per-destination totals (on the card two
+    launches, counted as one)."""
     if _on_cuda(weights):
         return _dispatch.dispatch_work_prefix_cuda(expert_idx, weights,
                                                    n_experts)
@@ -53,6 +54,19 @@ def dispatch_positions(expert_idx: torch.Tensor, base: torch.Tensor,
     if _on_cuda(expert_idx):
         return _dispatch.dispatch_positions_cuda(expert_idx, base, n_experts)
     return ref.dispatch_positions_ref(expert_idx, base, n_experts)
+
+
+def dispatch_positions_levels(topk_idx: torch.Tensor, n_experts: int,
+                              capacity: int):
+    """``(slot_idx (R, T, k), keep (R, T, k), filled (R, E))`` of a MoE
+    layer's k priority levels ``topk_idx`` (R, T, k) int32 in one call (one
+    launch on the card): level s counts from the previous level's fill
+    clamped to ``capacity``, and ``filled`` is the kept count per expert
+    (see ``ref.dispatch_positions_levels_ref``)."""
+    if _on_cuda(topk_idx):
+        return _dispatch.dispatch_positions_levels_cuda(topk_idx, n_experts,
+                                                        capacity)
+    return ref.dispatch_positions_levels_ref(topk_idx, n_experts, capacity)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -80,7 +94,8 @@ def mamba_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
 def launch_counts() -> dict[str, int]:
     """CUDA launches of each kernel in this process; ``flash_attention``
     counts both flash kernels, ``flash_attention_tc`` the tensor-core
-    (bfloat16) one alone."""
+    (bfloat16) one alone, ``dispatch_positions`` both position ops (one
+    launch a call), ``dispatch_work_prefix`` one a call (two launches)."""
     return {"prefix_scan": _scan.LAUNCHES,
             "dispatch_work_prefix": _dispatch.LAUNCHES,
             "dispatch_positions": _dispatch.POSITION_LAUNCHES,

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["prefix_scan_ref", "dispatch_work_prefix_ref",
-           "dispatch_positions_ref", "check_lengths", "prefill_positions",
+           "dispatch_positions_ref", "dispatch_positions_levels_ref",
+           "check_lengths", "prefill_positions",
            "flash_attention_ref", "mamba_scan_ref"]
 
 _NEG = -2.0 ** 30  # the attention mask value, as in the JAX package
@@ -101,6 +102,27 @@ def dispatch_positions_ref(expert_idx: torch.Tensor, base: torch.Tensor,
     pos = ((cum + base.unsqueeze(1)) * onehot).sum(-1, dtype=torch.int32)
     fill = base + onehot.sum(1, dtype=torch.int32)
     return pos, fill
+
+
+def dispatch_positions_levels_ref(topk_idx: torch.Tensor, n_experts: int,
+                                  capacity: int):
+    """:func:`dispatch_positions_ref` over the k priority levels of
+    ``topk_idx`` (R, T, k): level s counts from ``min(fill of level s - 1,
+    capacity)``, 0 at level 0 (all first choices place before any second
+    choice). Returns ``(slot_idx (R, T, k) int32, keep (R, T, k) bool,
+    filled (R, E) int32)``: keep is ``slot_idx < capacity`` and ``filled``
+    the last level's fill clamped to ``capacity`` (the kept count)."""
+    r, _, k = topk_idx.shape
+    filled = torch.zeros((r, n_experts), dtype=torch.int32,
+                         device=topk_idx.device)
+    slot_idx = []
+    for s in range(k):
+        pos, fill = dispatch_positions_ref(topk_idx[:, :, s], filled,
+                                           n_experts)
+        slot_idx.append(pos)
+        filled = torch.clamp(fill, max=capacity)
+    slot_idx = torch.stack(slot_idx, dim=2)
+    return slot_idx, slot_idx < capacity, filled
 
 
 def check_lengths(lengths: torch.Tensor, b: int, s: int, *,

@@ -13,9 +13,10 @@ Mapping onto the paper:
 
 The computation is batched over token groups (the JAX package vmaps over
 them): every tensor has a leading group axis G. The ``scan`` position method
-runs the expert-dispatch positions kernel (``kernels.ops.dispatch_positions``)
-once per priority slot over all groups at once, the groups being its rows;
-``sort`` is the equivalent stable-sort form. Nothing here reads a value back
+runs the expert-dispatch positions kernel
+(``kernels.ops.dispatch_positions_levels``) once per layer over all priority
+slots and all groups at once, the groups being its rows; ``sort`` is the
+equivalent stable-sort form. Nothing here reads a value back
 to the host.
 """
 
@@ -95,21 +96,12 @@ class DispatchResult:
 
 def _positions_scan(topk_idx: torch.Tensor, n_exp: int, capacity: int):
     """Slot-priority positions via the per-expert exclusive scans — the
-    paper's formulation: one ``ops.dispatch_positions`` call per priority
-    slot (all first choices place before any second choice), rows = groups.
-    The kernel's fill counts every routed token; a slot keeps at most C, so
-    the kept fill is ``min(fill, C)`` (``filled`` never exceeds C)."""
-    g, t_len, k = topk_idx.shape
-    filled = torch.zeros((g, n_exp), dtype=torch.int32,
-                         device=topk_idx.device)
-    slot_idx, keep = [], []
-    for s in range(k):
-        pos, fill = ops.dispatch_positions(topk_idx[:, :, s].contiguous(),
-                                           filled, n_exp)
-        keep.append(pos < capacity)
-        slot_idx.append(pos)
-        filled = torch.clamp(fill, max=capacity)
-    return torch.stack(slot_idx, dim=2), torch.stack(keep, dim=2), filled
+    paper's formulation: one ``ops.dispatch_positions_levels`` call for all
+    priority slots (all first choices place before any second choice), rows
+    = groups. Slot s counts from the previous slot's fill clamped to C, so
+    ``filled`` (the kept count) never exceeds C."""
+    return ops.dispatch_positions_levels(topk_idx.contiguous(), n_exp,
+                                         capacity)
 
 
 def _positions_sort(topk_idx: torch.Tensor, n_exp: int, capacity: int):

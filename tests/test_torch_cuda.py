@@ -79,6 +79,59 @@ def test_dispatch_kernel_matches_plain(cuda, r, t, e, frac):
     torch.testing.assert_close(got_f, want_f, rtol=1e-12, atol=0)
 
 
+def _ordered_loop(idx, w, e):
+    """The FIFO prefix as simulate_scalar sums it: per row, acc[d] += w in
+    token order, in Python floats (IEEE float64)."""
+    prefix = np.zeros(idx.shape)
+    fill = np.zeros((idx.shape[0], e))
+    for i in range(idx.shape[0]):
+        acc = [0.0] * e
+        out = prefix[i].tolist()
+        for j, (d, x) in enumerate(zip(idx[i].tolist(), w[i].tolist())):
+            if 0 <= d < e:
+                out[j] = acc[d]
+                acc[d] += x
+        prefix[i] = out
+        fill[i] = acc
+    return torch.from_numpy(prefix), torch.from_numpy(fill)
+
+
+@pytest.mark.parametrize("case", [
+    "sparse wave", "dense row", "dense slot runs", "E=1", "E=40000",
+    "T off the chunk", "all -1"])
+def test_dispatch_kernel_is_the_ordered_loop(cuda, case):
+    """prefix and fill bit for bit (torch.equal) the ordered loop: a sparse
+    wave (~1/200 tokens valid, E = 12,500), a dense row (every token valid,
+    E = 200, random and in runs of consecutive tokens as the engine's
+    per-slot totals call has them), E = 1, E = 40,000, T not a multiple of
+    the kernel's 16,384-token chunk (nor of 4), and no valid token."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    r, t, e = {"sparse wave": (3, 200_000, 12_500),
+               "dense row": (2, 100_000, 200),
+               "dense slot runs": (2, 100_000, 200),
+               "E=1": (3, 40_000, 1), "E=40000": (3, 40_000, 40_000),
+               "T off the chunk": (3, 2 * 16_384 + 5, 300),
+               "all -1": (2, 20_000, 8)}[case]
+    idx = rng.integers(0, e, size=(r, t))
+    if case == "sparse wave":
+        idx[rng.random((r, t)) >= 1 / 200] = -1
+    elif case == "dense slot runs":
+        idx = np.sort(idx, axis=1)
+    elif case == "all -1":
+        idx[:] = -1
+    elif case not in ("dense row",):
+        idx[rng.random((r, t)) < 0.3] = -1
+    idx = idx.astype(np.int32)
+    w = rng.random((r, t)) * 11
+    before = ops.launch_counts()["dispatch_work_prefix"]
+    got_p, got_f = ops.dispatch_work_prefix(
+        torch.from_numpy(idx).to(cuda), torch.from_numpy(w).to(cuda), e)
+    assert ops.launch_counts()["dispatch_work_prefix"] == before + 1
+    want_p, want_f = _ordered_loop(idx, w, e)
+    assert torch.equal(got_p.cpu(), want_p)
+    assert torch.equal(got_f.cpu(), want_f)
+
+
 def test_engine_on_card_matches_cpu_and_repeats_bit_for_bit(cuda):
     powers = np.random.default_rng(0).integers(1, 11, size=64).astype(float)
     cfg = VectorConfig(n_nodes=64, n_slots=80, fifo_dispatch=True,
@@ -128,6 +181,44 @@ def _positions_loop(idx, base, e):
                 pos[i, j] = fill[i, x]
                 fill[i, x] += 1
     return pos, fill
+
+
+def _levels_loop(topk, e, capacity):
+    """The k priority levels on the CPU by counting, for shapes whose
+    one-hot would not fit (see ref.dispatch_positions_levels_ref)."""
+    r, _, k = topk.shape
+    filled = torch.zeros((r, e), dtype=torch.int32)
+    slots = []
+    for s in range(k):
+        pos, fill = _positions_loop(topk[:, :, s], filled, e)
+        slots.append(pos)
+        filled = torch.clamp(fill, max=capacity)
+    slots = torch.stack(slots, dim=2)
+    return slots, slots < capacity, filled
+
+
+@pytest.mark.parametrize("r,t,k,e,capacity,frac", [
+    (8, 2048, 8, 32, 640, 1.0),       # granite's prefill, its capacity
+    (8, 2048, 8, 32, 100, 0.95),      # levels overflow: the clamp matters
+    (8, 1, 8, 32, 1, 1.0),            # granite's decode
+    (4, 3000, 2, 1, 700, 0.8), (4, 3000, 4, 300, 20, 0.7),
+    (2, 5000, 1, 128, 30, 0.9),
+    (2, 9000, 8, 16, 2000, 0.9),      # the row does not fit shared memory
+    (2, 3000, 3, 100_000, 1, 0.5),    # large E: the ordered-claim path
+    (1, 30_000, 2, 70_000, 3, 0.9),   # ... with the row outside it
+    (3, 100, 4, 8, 5, 0.0)])
+def test_dispatch_positions_levels_kernel_matches_plain(cuda, r, t, k, e,
+                                                        capacity, frac):
+    g = torch.Generator().manual_seed(r * t * k + e)
+    topk = torch.randint(0, e, (r, t, k), generator=g, dtype=torch.int32)
+    topk = torch.where(torch.rand(r, t, k, generator=g) < frac, topk, -1)
+    before = ops.launch_counts()["dispatch_positions"]
+    got = ops.dispatch_positions_levels(topk.to(cuda), e, capacity)
+    assert ops.launch_counts()["dispatch_positions"] == before + 1
+    want = (ref.dispatch_positions_levels_ref(topk, e, capacity)
+            if e <= 4096 else _levels_loop(topk, e, capacity))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("b,h,kv,s,hd,dtype,window,softcap", [
