@@ -77,6 +77,21 @@ Phases, each fatal on failure:
              same logits check, every MoE sub-layer's routing equal, and the
              card's launch counts show all three LM kernels (flash on its
              float32 kernel).
+11. events — the host event engine beside the batched one on the card: a
+             1,024-node cluster (powers 1..10) at 60% offered Poisson load,
+             work mean 6, horizon 50, PSTS (floor 0.1, trigger period 1),
+             about 29,000 tasks a seed. ``lab.sweep`` with backend "auto"
+             must send seeds 0-1 to ``events`` and seeds 0-7 to ``batched``
+             (on the card); for seeds 0 and 1 both backends realize the same
+             arrivals, and on events every task completes, with migrations
+             and trigger fires. Seed 0 rerun on events with tracing, probes
+             and the metrics registry on gives a byte-identical
+             ``Metrics.summary()`` (json.dumps) and an OpenMetrics scrape
+             that parses back; ``legacy`` on seed 0 twice gives equal
+             results with finite crossover, speedup and overhead. Seconds
+             per events run, microseconds per task, and the events-vs-
+             batched gaps in makespan and mean response are printed, not
+             checked (the fluid timeline ends at the horizon).
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -102,9 +117,14 @@ from repro_torch import lab  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.lab.backends import (  # noqa: E402
+    assemble_events_result,
+    build_events_runtime,
+)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.obs import parse_openmetrics  # noqa: E402
 from repro_torch.sched import moe_dispatch  # noqa: E402
 from repro_torch.serve import Engine, GenRequest  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
@@ -148,6 +168,14 @@ F32_TOL = 2e-5
 # leaked past a mask edge, 0.1 or more at these shapes)
 BF16_ROW_TOL = 1e-2
 LOGIT_TOL = 1e-4        # x max|logit|, card vs CPU (phase 6)
+# the event engine (phase 11): the sweep cell's shape at the largest cluster
+# the per-task host engine covers within the time limit
+EV_NODES = 1024
+EV_HORIZON = 50.0
+EV_LOAD = 0.6
+EV_WORK_MEAN = 6.0
+EV_SMALL_SEEDS = 2      # below BATCH_THRESHOLD: auto picks events
+EV_BATCH_SEEDS = 8      # at BATCH_THRESHOLD: auto picks batched
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, non-tensor FP64 rate (the scan and
 # prefix kernels do float64 adds outside the tensor cores), dense bf16
@@ -1256,6 +1284,97 @@ def phase_hybrid_vs_plain(dev):
         f"launches {launches}")
 
 
+def events_scenario() -> lab.Scenario:
+    cluster = lab.ClusterSpec(n_nodes=EV_NODES, power_low=1, power_high=10,
+                              power_seed=0)
+    rate = EV_LOAD * float(cluster.resolve_powers().sum()) / EV_WORK_MEAN
+    return lab.Scenario(
+        cluster=cluster,
+        workload=lab.WorkloadSpec(process="poisson", horizon=EV_HORIZON,
+                                  work_mean=EV_WORK_MEAN,
+                                  params={"rate": rate}),
+        policy=lab.PolicySpec("psts", trigger_period=1.0,
+                              params={"floor": 0.1}))
+
+
+def phase_events(dev, smi: str):
+    base = events_scenario()
+    t0 = time.perf_counter()
+    ev = lab.sweep(base=base, grid={"seed": range(EV_SMALL_SEEDS)},
+                   backend="auto", device=dev)
+    ev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ba = lab.sweep(base=base, grid={"seed": range(EV_BATCH_SEEDS)},
+                   backend="auto", device=dev)
+    torch.cuda.synchronize()
+    ba_s = time.perf_counter() - t0
+    if [r.backend for r in ev] != ["events"] * EV_SMALL_SEEDS:
+        fail(f"events: a {EV_SMALL_SEEDS}-seed sweep ran on "
+             f"{[r.backend for r in ev]}, expected events")
+    if [r.backend for r in ba] != ["batched"] * EV_BATCH_SEEDS:
+        fail(f"events: an {EV_BATCH_SEEDS}-seed sweep ran on "
+             f"{[r.backend for r in ba]}, expected batched")
+    tasks = 0
+    for seed, (e, b) in enumerate(zip(ev, ba)):
+        gap_mk = (b["makespan"] - e["makespan"]) / e["makespan"]
+        gap_mr = (b["mean_response"] - e["mean_response"]) / e["mean_response"]
+        if e["arrived"] != b["arrived"]:
+            fail(f"events: seed {seed} arrived {e['arrived']} on events, "
+                 f"{b['arrived']} on batched")
+        if e["completed"] != e["arrived"]:
+            fail(f"events: seed {seed} completed {e['completed']} of "
+                 f"{e['arrived']} tasks")
+        if not (e["migrations"] > 0 and e["trigger_fires"] > 0):
+            fail(f"events: seed {seed} made {e['migrations']} migrations "
+                 f"and {e['trigger_fires']} trigger fires")
+        tasks += e["arrived"]
+        log(f"[events] seed {seed}: {e['arrived']} tasks; makespan "
+            f"{e['makespan']!r} events / {b['makespan']!r} batched (gap "
+            f"{gap_mk!r}); mean response {e['mean_response']!r} / "
+            f"{b['mean_response']!r} (gap {gap_mr!r}); "
+            f"{e['trigger_fires']} trigger fires, {e['migrations']} "
+            f"migrations")
+    log(f"[events] {EV_NODES} nodes: {ev_s / EV_SMALL_SEEDS!r} s per events "
+        f"run, {ev_s / tasks * 1e6!r} us per task (host engine); batched "
+        f"sweep of {EV_BATCH_SEEDS} seeds {ba_s!r} s on "
+        f"{torch.cuda.get_device_name(0)} ({smi})")
+
+    # seed 0 again, traced, probed and scraped: same metrics, to the byte
+    obs_sc = base.replace(obs=lab.ObsSpec(trace=True, ring=4096,
+                                          probe_every=1.0, metrics=True))
+    t0 = time.perf_counter()
+    rt, wl, ins, (failures, joins, resizes) = build_events_runtime(obs_sc)
+    rt.run(wl, failures=failures, joins=joins, resizes=resizes)
+    obs_run = assemble_events_result(
+        obs_sc, rt, wl, ins, backend="events",
+        backend_options={"model": "discrete-event"})
+    obs_s = time.perf_counter() - t0
+    if json.dumps(obs_run.metrics) != json.dumps(ev[0].metrics):
+        fail("events: seed 0 with obs on gave other metrics than without")
+    scrape = ins.collector.scrape()
+    fams = parse_openmetrics(scrape)
+    if fams["sched_completed"]["samples"][0][2] != obs_run["completed"]:
+        fail("events: the OpenMetrics scrape disagrees with the summary")
+    obs = obs_run.extras["obs"]
+    log(f"[events] seed 0 with obs on: metrics byte-identical; "
+        f"{obs['trace_events']} trace events kept ({obs['trace_dropped']} "
+        f"dropped), {len(obs['probes']['t'])} probe samples, scrape of "
+        f"{len(fams)} families parses; {obs_s!r} s")
+
+    t0 = time.perf_counter()
+    leg = [lab.run(base, backend="legacy") for _ in range(2)]
+    leg_s = (time.perf_counter() - t0) / 2
+    if leg[0].to_dict() != leg[1].to_dict():
+        fail("events: legacy reruns of seed 0 differ")
+    for k in ("crossover", "speedup", "overhead"):
+        if not math.isfinite(leg[0].extras[k]):
+            fail(f"events: legacy {k} is {leg[0].extras[k]}")
+    x = {k: float(leg[0].extras[k])
+         for k in ("crossover", "speedup", "overhead")}
+    log(f"[events] legacy seed 0: crossover {x['crossover']!r}, speedup "
+        f"{x['speedup']!r}, overhead {x['overhead']!r}; {leg_s!r} s per run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -1315,6 +1434,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_falcon_vs_plain(dev)
     phase_hybrid_vs_plain(dev)
+    torch.cuda.empty_cache()
+    phase_events(dev, smi)
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -7,9 +7,7 @@ Layers carried over from the JAX package so far:
   psts       — recursive hyper-grid task scheduling
   cost_model — paper eqs. 8-12
   trigger    — crossover-point trigger (Tables 6-7)
-
-``simulator`` (the section-5 simulator) comes with a later slice of the
-port.
+  simulator  — paper-experiment cluster simulator (sec. 5)
 """
 
 from .cost_model import (
@@ -35,6 +33,13 @@ from .scan import (
     inclusive_scan_np,
     segment_positions,
 )
+from .simulator import (
+    SimConfig,
+    SimResult,
+    crossover_table,
+    simulate,
+    sweep_nodes,
+)
 from .trigger import CrossoverTrigger, TriggerDecision, imbalance
 
 __all__ = [
@@ -46,5 +51,6 @@ __all__ = [
     "ScheduleResult", "psts_schedule", "sender_receiver",
     "exclusive_scan", "exclusive_scan_np", "inclusive_scan",
     "inclusive_scan_np", "segment_positions",
+    "SimConfig", "SimResult", "crossover_table", "simulate", "sweep_nodes",
     "CrossoverTrigger", "TriggerDecision", "imbalance",
 ]

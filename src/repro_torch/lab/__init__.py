@@ -11,13 +11,16 @@ Declare an experiment once, exactly as for the JAX package's ``repro.lab``::
         policy=lab.PolicySpec("psts", params={"floor": 0.1}),
     )
 
-then sweep it: ``lab.sweep(base=sc, grid={"seed": range(128)})`` sends the
-uniform seed sweep to the batched backend, one batched run on the CUDA
-device through the hand-written kernels (``device="cpu"`` runs the plain
-PyTorch versions instead). ``lab.run(sc, backend="batched")`` runs one
-scenario. Results carry the same canonical :class:`RunResult` schema and
-fingerprints as ``repro.lab``. The other backends come with later slices of
-the port.
+then run it: ``lab.run(sc)`` replays it on the discrete-event engine (host
+code, per-task state, any policy, faults), ``lab.run(sc, backend="legacy")``
+on the static paper simulator. Or sweep it: ``lab.sweep(base=sc,
+grid={"seed": range(128)})`` sends the uniform seed sweep to the batched
+backend, one batched run on the CUDA device through the hand-written
+kernels (``device="cpu"`` runs the plain PyTorch versions instead); small
+or non-uniform sweeps and per-task policies run on the event engine.
+Results carry the same canonical :class:`RunResult` schema and fingerprints
+as ``repro.lab``. The ``federated`` and ``online`` backends come with later
+slices of the port.
 """
 
 from .api import BATCH_THRESHOLD, expand_grid, run, sweep

@@ -1,15 +1,18 @@
 """``run`` / ``sweep``: the two entry points over every ported backend.
 
-``run(scenario, backend="batched")`` executes one scenario after
-eligibility validation. ``sweep(...)`` executes many scenarios — given
-explicitly or expanded from a ``base`` x ``grid`` product — and
-auto-dispatches uniform seed sweeps of ``>= batch_threshold`` scenarios to
-the batched backend, where the whole sweep is ONE batched run on the GPU.
-Anything else would go to the event engine, which a later slice of the port
-brings: until then it raises a ``BackendError`` that says so.
+``run(scenario)`` executes one scenario on the discrete-event engine (or
+the backend named) after eligibility validation. ``sweep(...)`` executes
+many scenarios — given explicitly or expanded from a ``base`` x ``grid``
+product — and auto-dispatches uniform seed sweeps of ``>= batch_threshold``
+scenarios to the batched backend, where the whole sweep is ONE batched run
+on the GPU; anything else runs scenario by scenario on the event engine.
 
-Backend options pass through: ``dt``, ``fifo_dispatch`` and ``device`` (the
-batched backend runs on the CUDA device unless ``device="cpu"``).
+Backend options pass through: ``dt`` and ``fifo_dispatch`` to the batched
+backend, as in the JAX package. ``device`` is the port's own: the batched
+backend runs on the CUDA device unless ``device="cpu"``. The events and
+legacy backends are host code and take no options, so ``sweep`` hands
+``device`` to the batched backend alone — one call can say where a sweep
+runs if it is batched, whichever backend auto-dispatch picks.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def run(scenario: Scenario, backend: str = "events",
         **backend_options) -> RunResult:
     """Execute one scenario on one backend; raises ``BackendError`` with the
     reason when the spec is not expressible there (or the backend is not
-    ported yet — the default, ``events``, is not)."""
+    ported yet)."""
     return get_backend(backend).run(scenario, **backend_options)
 
 
@@ -57,7 +60,8 @@ def sweep(scenarios: list[Scenario] | None = None, *,
     Dispatch: ``backend="auto"`` sends uniform seed sweeps of
     ``>= batch_threshold`` batched-eligible scenarios to the batched backend
     in one call, and the event engine otherwise. Any explicit backend name
-    forces that backend for every scenario.
+    forces that backend for every scenario. ``device`` reaches the batched
+    backend only (the host backends have no device to pick).
     """
     if scenarios is None:
         if base is None:
@@ -92,6 +96,8 @@ def sweep(scenarios: list[Scenario] | None = None, *,
         backend = "batched" if batchable else "events"
     if backend == "batched" and uniform:
         return batched.run_many(scenarios, **backend_options)
+    if backend != "batched":
+        backend_options.pop("device", None)
     chosen = get_backend(backend)
     for sc in scenarios:  # fail fast, before any scenario has run
         chosen.check(sc)

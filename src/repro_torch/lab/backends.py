@@ -1,16 +1,22 @@
-"""Backend protocol, the registry, and the batched backend.
+"""Backend protocol, the registry, and the three ported execution surfaces.
 
+* ``"events"``  — the scalar discrete-event engine (``runtime.ClusterRuntime``):
+  full fidelity, per-task state, any registered policy, faults, migration
+  bandwidth. The reference semantics. Host code: it never touches the GPU.
 * ``"batched"`` — the vectorized fluid backend (``runtime.vector_backend``):
   B scenarios as one batched run on the GPU, through the hand-written scan
   and dispatch kernels. Positional policies only (``arrival_only``/``psts``)
   — it carries no per-task migration histories — and faults become a power
   up/down schedule.
+* ``"legacy"``  — the static paper simulator (``core.simulator``): one
+  snapshot, one full PSTS pass, the section-5 cost model. No faults, no
+  arrival staggering; it alone derives crossover points (Tables 6-7). Host
+  code, like ``events``.
 
-The JAX package's other backends (``events``, ``legacy``, ``federated``,
-``online``) are not ported yet: :func:`get_backend` raises a
-:class:`BackendError` that says so. Eligibility reasons and results are
-those of ``repro.lab.backends``, word for word, so the two packages can be
-held against each other.
+The JAX package's other backends (``federated``, ``online``) are not ported
+yet: :func:`get_backend` raises a :class:`BackendError` that says so.
+Eligibility reasons and results are those of ``repro.lab.backends``, word
+for word, so the two packages can be held against each other.
 """
 
 from __future__ import annotations
@@ -21,9 +27,14 @@ import math
 
 import numpy as np
 
-from ..runtime.policies import PstsPolicy
+from ..core.hypergrid import embed, optimal_dim
+from ..core.simulator import SimConfig, simulate
+from ..core.trigger import CrossoverTrigger
+from ..obs import build_instruments, export_obs
+from ..runtime.policies import PstsPolicy, make_policy
+from ..runtime.runtime import ClusterRuntime, InfeasibleTaskError
 from ..runtime.vector_backend import VectorConfig, simulate_batch
-from ..runtime.workload import batch_slots
+from ..runtime.workload import ARRIVAL_PROCESSES, batch_slots
 from .result import RunResult, make_metrics
 from .specs import Scenario, resolve_fault_schedule
 
@@ -33,21 +44,26 @@ __all__ = [
     "BACKENDS",
     "register_backend",
     "get_backend",
+    "EventsBackend",
     "BatchedBackend",
+    "LegacyBackend",
     "BATCHED_POLICIES",
     "NOT_PORTED",
+    "build_events_runtime",
+    "assemble_events_result",
+    "events_eligible",
 ]
 
 # policies expressible without per-task state (the batched backend's limit)
 BATCHED_POLICIES = ("arrival_only", "psts")
 
 # cost-model constants a PolicySpec may override — derived from PstsPolicy's
-# own fields so the batched param validation stays in lockstep with what the
-# events backend's constructor accepts
+# own fields so the batched/legacy param validation stays in lockstep with
+# what the events backend's constructor accepts
 _COST_KEYS = tuple(f.name for f in dataclasses.fields(PstsPolicy))
 
 # the JAX package's backends that later slices of the port bring
-NOT_PORTED = ("events", "legacy", "federated", "online")
+NOT_PORTED = ("federated", "online")
 
 
 class BackendError(ValueError):
@@ -85,7 +101,7 @@ def get_backend(name: str) -> Backend:
         raise BackendError(
             f"backend {name!r} is not ported to repro_torch yet (a later "
             f"slice of the port brings it); run it with the JAX package's "
-            f"repro.lab, or use the 'batched' backend")
+            f"repro.lab, or use the 'events' or 'batched' backend")
     if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r}; have {sorted(BACKENDS)}")
     return BACKENDS[name]
@@ -106,6 +122,16 @@ def uniform_but_for_seed(scenarios: list[Scenario]) -> bool:
         return json.dumps(d, sort_keys=True)
     first = key(scenarios[0])
     return all(key(sc) == first for sc in scenarios[1:])
+
+
+def _single_cluster_only(spec) -> str | None:
+    """Federations (duck-typed on ``is_federation``, as in the JAX package,
+    where the federation package imports this module) only run on the
+    federated backend."""
+    if getattr(spec, "is_federation", False):
+        return ("a Federation composes member Scenarios; run it on the "
+                "'federated' backend")
+    return None
 
 
 def _unknown_policy_params(scenario: Scenario) -> str | None:
@@ -133,9 +159,26 @@ def _fault_nodes_in_range(scenario: Scenario) -> str | None:
     return None
 
 
+def _dag_problem(scenario: Scenario) -> str | None:
+    """A DAG spec that cannot be realized (explicit edges sized for a
+    different task count, a bad generator param) must surface as an
+    eligibility reason, not a mid-run traceback. Trace workloads are
+    covered by :func:`_trace_problem`'s materialization. (Until the graphs
+    slice of the port brings DAG realization, every DAG lands here.)"""
+    if scenario.workload.dag is None or scenario.workload.is_trace:
+        return None
+    try:
+        scenario.workload.materialize(scenario.seed)
+    except Exception as exc:  # noqa: BLE001 — surface any realization failure
+        return f"workload dag unrealizable: {exc}"
+    return None
+
+
 def _trace_problem(scenario: Scenario) -> str | None:
     """A missing/unparseable trace must be an eligibility reason, not a
-    mid-run traceback after the 'backends' report said eligible."""
+    mid-run traceback after the 'backends' report said eligible. (The JAX
+    package also checks a TraceRef's machine_events companion here; the
+    traces slice of the port brings TraceRef.)"""
     if not scenario.workload.is_trace:
         return None
     label = scenario.workload.trace_path
@@ -144,6 +187,121 @@ def _trace_problem(scenario: Scenario) -> str | None:
     except Exception as exc:  # noqa: BLE001 — surface any load failure
         return f"trace {label!r} unreadable: {exc}"
     return None
+
+
+def _constraint_problem(scenario: Scenario) -> str | None:
+    """Constrained traces must be satisfiable on this cluster: every
+    constraint attribute declared, every task with >= 1 feasible node.
+    Duck-typed on the workload's ``constrained`` flag (a trace schema's):
+    the plain ``Workload`` a bare CSV materializes to carries none."""
+    if not scenario.workload.is_trace:
+        return None
+    wl = scenario.workload.materialize(scenario.seed)
+    if not getattr(wl, "constrained", False):
+        return None
+    attrs = scenario.cluster.resolve_attrs()
+    names = tuple(sorted(attrs)) if attrs else ()
+    matrix = (np.stack([np.asarray(attrs[a], dtype=np.float64)
+                        for a in names], axis=1)
+              if names else np.zeros((scenario.cluster.size, 0)))
+    try:
+        wl.feasibility(names, matrix)
+    except InfeasibleTaskError as exc:
+        return str(exc)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# events — scalar discrete-event engine (host code)
+# ---------------------------------------------------------------------------
+
+def build_events_runtime(scenario: Scenario, **runtime_extra):
+    """Shared lowering for the events backend and the online
+    (scheduler-as-a-service) backend: one scenario becomes one configured
+    :class:`~repro_torch.runtime.ClusterRuntime` plus its realized workload,
+    instruments, and fault schedule. Keeping construction in one place is
+    what makes online/offline ``Metrics.summary()`` byte-identical."""
+    wl = scenario.workload.materialize(scenario.seed)
+    faults = resolve_fault_schedule(scenario)
+    ins = build_instruments(scenario.obs)
+    rt = ClusterRuntime(
+        scenario.cluster.resolve_powers(), scenario.policy.name,
+        d=scenario.cluster.d,
+        trigger_period=scenario.policy.trigger_period,
+        bandwidth=scenario.cluster.bandwidth,
+        link_bandwidth=scenario.cluster.link_bandwidth,
+        seed=scenario.engine_seed,
+        policy_kwargs=dict(scenario.policy.params),
+        node_attrs=scenario.cluster.resolve_attrs(),
+        constraint_blind=scenario.policy.constraint_mode == "blind",
+        **ins.runtime_kwargs(), **runtime_extra)
+    return rt, wl, ins, faults
+
+
+def assemble_events_result(scenario: Scenario, rt, wl, ins, *,
+                           backend: str, backend_options: dict) -> RunResult:
+    """Shared result assembly for the events/online backends: the same
+    metrics schema and the same extras (work census, telemetry export)
+    regardless of whether the workload was replayed offline or streamed in
+    incrementally. (The JAX package also adds per-tier waits and a churn
+    work census for trace schemas, which the traces slice of the port
+    brings.)"""
+    m = rt.metrics
+    if scenario.workload.m_tasks is not None:
+        # the realized arrival process decides the count here
+        backend_options.setdefault("ignored", []).append(
+            "workload.m_tasks")
+    extras = {}
+    wl_dag = getattr(wl, "dag", None)
+    if wl_dag is not None and not wl_dag.empty:
+        # end-of-run work audit for DAG frontiers: everything admitted is
+        # completed, and the waste the churn burned is on record
+        extras["work_census"] = {
+            k: v for k, v in rt.work_census().items()
+            if k in ("admitted", "completed", "wasted",
+                     "in_flight", "conservation_gap")}
+    if ins.any:
+        extras["obs"] = export_obs(ins)
+    return RunResult(
+        fingerprint=scenario.fingerprint(), backend=backend,
+        backend_options=backend_options,
+        metrics=make_metrics(**m.summary()),
+        extras=extras,
+        scenario_name=scenario.name)
+
+
+def events_eligible(scenario: Scenario) -> str | None:
+    """Eligibility for the discrete-event engine (shared by the events and
+    online backends — anything the engine can replay it can also stream)."""
+    bad = _single_cluster_only(scenario)
+    if bad is not None:
+        return bad
+    try:  # unknown names AND param/constructor mismatches, one reason
+        make_policy(scenario.policy.name, **dict(scenario.policy.params))
+    except (TypeError, ValueError) as exc:
+        return str(exc)
+    return (_fault_nodes_in_range(scenario) or _dag_problem(scenario)
+            or _trace_problem(scenario) or _constraint_problem(scenario))
+
+
+@register_backend
+class EventsBackend(Backend):
+    name = "events"
+
+    def eligible(self, scenario):
+        return events_eligible(scenario)
+
+    def run(self, scenario, **options):
+        self.check(scenario)
+        if options:
+            raise TypeError(f"events backend takes no options: "
+                            f"{sorted(options)}")
+        rt, wl, ins, (failures, joins, resizes) = \
+            build_events_runtime(scenario)
+        rt.run(wl, failures=failures, joins=joins, resizes=resizes)
+        return assemble_events_result(
+            scenario, rt, wl, ins, backend=self.name,
+            backend_options={"model": "discrete-event"})
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +314,9 @@ class BatchedBackend(Backend):
     default_dt = 1.0
 
     def eligible(self, scenario):
+        bad = _single_cluster_only(scenario)
+        if bad is not None:
+            return bad
         if scenario.policy.name not in BATCHED_POLICIES:
             return (f"policy {scenario.policy.name!r} needs per-task state; "
                     f"the batched backend supports positional policies only "
@@ -402,3 +563,106 @@ class BatchedBackend(Backend):
                              extras={"obs": self._obs_extras(bm, i, cfg)}
                              if cfg.probe else None)
                 for i, sc in enumerate(scenarios)]
+
+
+# ---------------------------------------------------------------------------
+# legacy — static paper simulator (core.simulator, section 5; host code)
+# ---------------------------------------------------------------------------
+
+@register_backend
+class LegacyBackend(Backend):
+    name = "legacy"
+
+    def eligible(self, scenario):
+        bad = _single_cluster_only(scenario)
+        if bad is not None:
+            return bad
+        if not scenario.faults.empty:
+            return ("the static paper simulator has no timeline; declare "
+                    "faults on the events or batched backend")
+        if scenario.policy.name != "psts":
+            return (f"models exactly one full PSTS pass; policy "
+                    f"{scenario.policy.name!r} is not expressible")
+        if scenario.workload.is_trace:
+            return ("samples its own workload realization; trace replay "
+                    "needs the events or batched backend")
+        if scenario.workload.dag is not None:
+            return ("workload declares a task-dependency DAG; the static "
+                    "snapshot has no timeline to gate releases on parent "
+                    "completions — run on the events backend")
+        return _unknown_policy_params(scenario)
+
+    def run(self, scenario, **options):
+        self.check(scenario)
+        if options:
+            raise TypeError(f"legacy backend takes no options: "
+                            f"{sorted(options)}")
+        cluster, wl_spec, pol = (scenario.cluster, scenario.workload,
+                                 scenario.policy)
+        powers = cluster.resolve_powers()
+        n = int(powers.size)
+        d = optimal_dim(n) if cluster.d is None else cluster.d
+        if wl_spec.m_tasks is not None:
+            m = wl_spec.m_tasks
+        else:  # arrival count only — simulate() samples its own works
+            rng = np.random.default_rng(scenario.seed)
+            m = int(ARRIVAL_PROCESSES[wl_spec.process](
+                wl_spec.horizon, rng, **wl_spec.params).shape[0])
+        base = SimConfig()
+        cost = {k: float(pol.params.get(k, getattr(base, k)))
+                for k in _COST_KEYS if k != "floor"}
+        cfg = SimConfig(
+            n_nodes=n, d=d, m_tasks=m, work_dist=wl_spec.work_dist,
+            work_mean=wl_spec.work_mean, packet_mean=wl_spec.packet_mean,
+            powers=tuple(float(p) for p in powers), seed=scenario.seed,
+            **cost)
+        r = simulate(cfg)
+        metrics = make_metrics(
+            arrived=m, completed=m,
+            makespan=r.makespan_after + r.overhead,
+            migrations=r.moved_tasks,
+            moved_packets=r.moved_packets,
+            moved_units=r.moved_units,
+            trigger_evals=1,
+            trigger_fires=int(r.moved_tasks > 0),
+            restarts=0, failures=0, joins=0, resizes=0,
+            evictions=0, wasted_work=0.0)
+        trig = CrossoverTrigger(
+            embed(powers, d), p=cfg.p, q=cfg.q, t_task=cfg.t_task,
+            packets_per_step=cfg.packets_per_step)
+        extras = {
+            "crossover": r.crossover,
+            "arrival_crossover": trig.arrival_crossover(
+                mean_work=cfg.work_mean, m_tasks=m,
+                packets_per_task=cfg.packet_mean),
+            "speedup": r.speedup,
+            "overhead": r.overhead,
+            "overhead_apriori": r.overhead_apriori,
+            "makespan_before": r.makespan_before,
+            "makespan_after": r.makespan_after,
+            "imbalance_before": r.imbalance_before,
+            "imbalance_after": r.imbalance_after,
+            "residual": r.residual,
+            "dims": list(r.dims),
+        }
+        return RunResult(
+            fingerprint=scenario.fingerprint(), backend=self.name,
+            backend_options={
+                "model": "static-snapshot", "d": d,
+                # unset cost constants keep SimConfig's paper-calibrated
+                # absolute regime (p=0.2, ...), deliberately NOT the
+                # PstsPolicy relative regime events/batched share — this
+                # backend exists to reproduce the paper's Tables 6-7
+                "cost_defaults": "SimConfig (paper-calibrated)",
+                # the snapshot has no timeline: arrivals land at once and
+                # the one PSTS pass runs unconditionally (no trigger, so
+                # a hysteresis floor has nothing to gate)
+                "ignored": ["workload arrival times",
+                            "policy.trigger_period", "cluster.bandwidth",
+                            "engine_seed"]
+                + (["policy.params.floor"] if "floor" in pol.params
+                   else [])
+                + (["obs (static snapshot: no timeline to trace or probe)"]
+                   if scenario.obs is not None else []),
+            },
+            metrics=metrics, extras=extras, scenario_name=scenario.name)

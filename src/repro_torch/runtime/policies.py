@@ -16,9 +16,9 @@ Registry::
 new task lands at the midpoint of the deficit intervals computed from the
 load and power scans — no global reshuffle.
 
-The policies decide for the event engine, which a later slice of the port
-brings; so far the batched backend reads ``PstsPolicy``'s cost constants and
-defaults, and ``sched.request_sched`` registers ``"replica"``.
+The policies decide for the event engine (``runtime.ClusterRuntime``); the
+batched backend reads ``PstsPolicy``'s cost constants and defaults, and
+``sched.request_sched`` registers ``"replica"``.
 """
 
 from __future__ import annotations

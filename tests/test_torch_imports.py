@@ -62,3 +62,18 @@ def test_serving_subpackages_import_without_jax_or_repro(report):
         assert f"repro_torch.{sub}" in report["modules"]
         for mod in mods:
             assert f"repro_torch.{sub}.{mod}" in report["modules"]
+
+
+def test_event_engine_modules_import_without_jax_or_repro(report):
+    """The event engine's modules: the telemetry subsystem, the engine and
+    its event queue, and the paper simulator."""
+    assert report["foreign"] == []
+    assert report["libs"] == 0
+    for sub, mods in {
+            "obs": ("tracer", "registry", "probe", "monitor", "anomaly",
+                    "export", "wire"),
+            "runtime": ("events", "runtime"),
+            "core": ("simulator",)}.items():
+        assert f"repro_torch.{sub}" in report["modules"]
+        for mod in mods:
+            assert f"repro_torch.{sub}.{mod}" in report["modules"]

@@ -152,10 +152,24 @@ def test_reference_compile_output_runs_through_the_port_engine():
 
 def test_unported_parts_say_so():
     sc = _scenario(lab)
-    with pytest.raises(lab.BackendError, match="not ported"):
-        lab.run(sc)  # the default backend is the event engine
-    with pytest.raises(lab.BackendError, match="not ported"):
-        lab.sweep(base=sc, grid={"seed": range(3)}, device="cpu")
+    # the event engine (the default) and the paper simulator run ...
+    assert lab.run(sc).backend == "events"
+    assert lab.run(sc, backend="legacy").backend == "legacy"
+    # ... the federated and online backends still wait for later slices
+    for name in ("federated", "online"):
+        with pytest.raises(lab.BackendError, match="not ported"):
+            lab.run(sc, backend=name)
+    assert sorted(lab.BACKENDS) == ["batched", "events", "legacy"]
+    # device= reaches the batched backend alone: a small sweep runs on the
+    # host engine, a uniform one of 8 seeds on the batched backend, and an
+    # explicit host backend refuses the option as the JAX package's does
+    small = lab.sweep(base=sc, grid={"seed": range(3)}, device="cpu")
+    assert [r.backend for r in small] == ["events"] * 3
+    large = lab.sweep(base=sc, grid={"seed": range(8)}, device="cpu")
+    assert {r.backend for r in large} == {"batched"}
+    for name in ("events", "legacy"):
+        with pytest.raises(TypeError, match="takes no options"):
+            lab.run(sc, backend=name, device="cpu")
     with pytest.raises(NotImplementedError, match="traces slice"):
         lab.TraceRef(path="x.csv")
     with pytest.raises(NotImplementedError, match="traces slice"):

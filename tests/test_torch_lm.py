@@ -1,10 +1,12 @@
 """The port's LM against the JAX package's on the CPU: ``prefill``,
-``decode_step`` and ``apply`` logits and caches, for granite-moe (MoE,
-RMSNorm), olmo-1b (dense, non-parametric LayerNorm), falcon-mamba-7b (ssm:
-Mamba layers, SSM state and conv caches) and jamba-v0.1-52b (hybrid: Mamba,
-attention and MoE sub-layers, a per-sub-layer cache) at their smoke
-configs, with the JAX parameters converted by ``from_jax_params`` and
-right-padded prompts of several lengths.
+``decode_step`` and ``apply`` logits and caches, for every arch of the
+registry at its smoke config — granite-moe (MoE, RMSNorm), olmo-1b (dense,
+non-parametric LayerNorm), falcon-mamba-7b (ssm: Mamba layers, SSM state
+and conv caches), jamba-v0.1-52b (hybrid: Mamba, attention and MoE
+sub-layers, a per-sub-layer cache), gemma3-4b, nemotron-4-15b, qwen1.5-32b,
+grok-1-314b, musicgen-large and internvl2-1b — with the JAX parameters
+converted by ``from_jax_params`` and right-padded prompts of several
+lengths.
 
 Tolerance: 1e-4 x max|logit| on logits, 1e-5 on caches. Both sides run in
 float32; the port's attention is a full softmax where the JAX model's is an
@@ -29,7 +31,8 @@ from repro_torch.models import (
 )
 
 ARCHS = ("granite-moe-1b-a400m", "olmo-1b", "falcon-mamba-7b",
-         "jamba-v0.1-52b")
+         "jamba-v0.1-52b", "gemma3-4b", "nemotron-4-15b", "qwen1.5-32b",
+         "grok-1-314b", "musicgen-large", "internvl2-1b")
 LENGTHS = (3, 17, 32, 9)        # one prefill batch, bucket S = 32
 MAX_LEN = 48
 LOGIT_TOL = 1e-4
