@@ -12,7 +12,10 @@ Phases, each fatal on failure:
              kernel, the plain version and the library yardstick. The FIFO
              dispatch prefix's two full-shape calls (the slot wave and the
              per-slot totals) are also held bit for bit against the ordered
-             loop on two rows each, and timed each with its bound. The MoE
+             loop on two rows each, and timed each with its bound; started
+             from random queues (the engine's queue update) it is the
+             ordered loop from them, bit for bit. The scan equals its plain
+             version on the CPU (np.cumsum(x) - x) bit for bit. The MoE
              dispatch positions over all k levels (one launch) equal the
              plain version exactly at granite's prefill and decode, with
              overflowing levels, E = 1, 300 and 5000. Every
@@ -92,6 +95,37 @@ Phases, each fatal on failure:
              per events run, microseconds per task, and the events-vs-
              batched gaps in makespan and mean response are printed, not
              checked (the fluid timeline ends at the horizon).
+12. traces, federations, DAGs — the seventh slice's paths:
+    a. trace-12.5k, on the card: ``lab.sweep`` (backend "auto") of seeds
+       0-15 over the bundled Google excerpt parsed with
+       eviction_mode="end" and rate-scaled 966x (``TraceRef(scale=966)``,
+       ~1.64 M tasks a seed in the first 400 s) on the 12,500-node cluster,
+       PSTS with fifo_dispatch. It must run on ``batched``, flag the
+       trace's priorities and eviction outcomes as ignored, launch the scan
+       and dispatch kernels (counters zeroed just before, read just
+       after); seeds 0 and 15 equal ``simulate_scalar`` at rtol 1e-6, and
+       the engine rerun on the same tensors repeats every metric bit for
+       bit. Host seconds (scaling and lowering) and engine seconds, peak
+       memory and trigger fires per seed are printed.
+    b. trace-replay-16, host: the whole excerpt with its constraints table,
+       eviction_mode="requeue" and its machine_events companion on
+       examples/trace_replay.py's 16-node, 4-class cluster, as psts/aware
+       and as arrival_only/blind on ``events``: every task completes,
+       evictions, failures, joins and resizes all happen, per-tier waits
+       and counts are reported, and psts/aware's tier-0 mean wait is below
+       arrival_only/blind's.
+    c. federations: a link-free federation of 8 clusterdata-12.5k members
+       (seeds 0-7) runs on ``federated`` as one fluid batch on the card
+       (counters show the scan and dispatch kernels), its members equal a
+       batched ``lab.sweep`` of the same 8 scenarios and its aggregate
+       arrivals and completions their sums; then the geo-federation
+       preset's shape at 4 x 256 nodes, horizon 50 (member 0 at 120%
+       offered load, the others at 30%) on the host event model: every
+       task completes, WAN migrations happen, the mean response beats the
+       same members isolated, and a rerun is equal to the byte.
+    d. dag-256, host: phase 11's scenario cut to 256 nodes with a random
+       DAG: ``batched`` refuses it with the JAX package's reason, and on
+       ``events`` every task completes and the work census closes.
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -106,6 +140,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -176,6 +211,32 @@ EV_LOAD = 0.6
 EV_WORK_MEAN = 6.0
 EV_SMALL_SEEDS = 2      # below BATCH_THRESHOLD: auto picks events
 EV_BATCH_SEEDS = 8      # at BATCH_THRESHOLD: auto picks batched
+# phase 12: the bundled Google excerpt (10,000 tasks over 1,950 s)
+TRACE_DATA = Path(__file__).resolve().parent / "benchmarks" / "data"
+TRACE_FILE = TRACE_DATA / "google_excerpt_10k.csv.gz"
+TRACE_CONSTRAINTS = TRACE_DATA / "google_excerpt_10k_constraints.csv.gz"
+TRACE_MACHINES = TRACE_DATA / "google_excerpt_10k_machine_events.csv.gz"
+# 966x the excerpt's 42.72 work units/s offers 60% of the 12,500-node
+# cluster's 68,800 over the whole trace
+TRACE_SCALE = 966.0
+TRACE_HORIZON = 400.0
+TRACE_SEEDS = 16
+TRACE_SAMPLED = (0, 15)
+TRACE_IGNORED = ("workload trace priorities",
+                 "workload trace eviction outcomes (ends_evicted)")
+# examples/trace_replay.py's cluster: 4 machine classes x 4 nodes
+REPLAY_POWERS = (1.0,) * 4 + (1.25,) * 4 + (1.75,) * 4 + (2.0,) * 4
+REPLAY_ATTRS = {"machine_class": (0.0,) * 4 + (1.0,) * 4 + (2.0,) * 4
+                + (3.0,) * 4}
+FED_MEMBERS = 8
+GEO_NODES = 256
+GEO_HORIZON = 50.0
+GEO_LOADS = (1.2, 0.3, 0.3, 0.3)
+DAG_NODES = 256
+# the JAX package's batched refusal of a DAG workload, word for word
+DAG_REASON = ("workload declares a task-dependency DAG; the fluid model has "
+              "no per-task identity to gate releases on parent completions "
+              "— run on the events backend")
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, non-tensor FP64 rate (the scan and
 # prefix kernels do float64 adds outside the tensor cores), dense bf16
@@ -258,10 +319,11 @@ def dispatch_err(idx, w, e):
     return rel, absd
 
 
-def ordered_loop(idx_row, w_row, e):
+def ordered_loop(idx_row, w_row, e, init=None):
     """The FIFO prefix of one row as simulate_scalar sums it: acc[d] += w in
-    token order, in Python floats (IEEE float64). Returns (prefix, fill)."""
-    acc = [0.0] * e
+    token order, in Python floats (IEEE float64), from ``init`` (a list)
+    or zeros. Returns (prefix, fill)."""
+    acc = [0.0] * e if init is None else list(init)
     out = [0.0] * len(idx_row)
     for j, (d, x) in enumerate(zip(idx_row, w_row)):
         if 0 <= d < e:
@@ -315,6 +377,19 @@ def phase_kernels(dev, slot, works, cfg):
             fail(f"prefix_scan {label}: error {rel} > 1e-12 x row total")
         if label.startswith("works"):
             worst = absd
+    # bit for bit the plain version on the CPU (np.cumsum(x) - x, the
+    # oracle's S and lam): the engine's owner choice reads these bits
+    for label, x in [("works rows 0 and B-1", works[[0, B - 1]]),
+                     ("lam (B, n)", gam)] + [
+            (f"edge {r}x{c}", torch.rand(r, c, dtype=torch.float64,
+                                         generator=g).to(dev) * 11)
+            for r, c in [(1, 1), (3, 7), (5, 2049), (1, 100_003)]]:
+        if not torch.equal(ops.prefix_scan(x.contiguous()).cpu(),
+                           ref.prefix_scan_ref(x.cpu())):
+            fail(f"prefix_scan {label}: not bit for bit the sequential "
+                 f"scan")
+    log("[kernels] prefix_scan bit for bit the plain version on the CPU "
+        "(works rows, lam, edges)")
     scan_ms = time_ms(lambda: ops.prefix_scan(works), 10)
     scan_plain = time_ms(lambda: ref.prefix_scan_ref(works), 10)
     scan_lib = time_ms(lambda: torch.cumsum(works, dim=-1) - works, 10)
@@ -374,6 +449,19 @@ def phase_kernels(dev, slot, works, cfg):
             log(f"[kernels] dispatch_work_prefix {label} row {row}: prefix "
                 f"and fill bit for bit the ordered loop "
                 f"({time.perf_counter() - t0:.1f}s)")
+    # the slot wave started from queues (the engine's np.add.at order)
+    init = (torch.rand(B, n, dtype=torch.float64, generator=g) * 500).to(dev)
+    prefix, fill = ops.dispatch_work_prefix(wave_idx, wave_w, n, init=init)
+    for row in (0, B - 1):
+        want_p, want_f = ordered_loop(wave_idx[row].tolist(),
+                                      wave_w[row].tolist(), n,
+                                      init[row].tolist())
+        if not (torch.equal(prefix[row].cpu(), want_p)
+                and torch.equal(fill[row].cpu(), want_f)):
+            fail(f"dispatch_work_prefix slot wave from init row {row}: not "
+                 f"bit for bit the ordered loop")
+    log("[kernels] dispatch_work_prefix slot wave from init (the queue "
+        "update): rows 0 and B-1 bit for bit the ordered loop")
     # each full-shape call timed, beside its bound and its plain version:
     # 4 B read per token, 8 B written per prefix, 8 B read per valid weight,
     # 8 B written per fill cell; one float64 add per valid token
@@ -1375,6 +1463,304 @@ def phase_events(dev, smi: str):
         f"{x['speedup']!r}, overhead {x['overhead']!r}; {leg_s!r} s per run")
 
 
+def trace_scenario() -> lab.Scenario:
+    """trace-12.5k: the excerpt rate-scaled to the 12,500-node cell."""
+    return lab.Scenario(
+        cluster=lab.ClusterSpec(n_nodes=N_NODES, power_low=1, power_high=10,
+                                power_seed=0),
+        workload=lab.WorkloadSpec(
+            trace=lab.TraceRef(path=str(TRACE_FILE), format="google",
+                               params={"eviction_mode": "end"},
+                               scale=TRACE_SCALE),
+            horizon=TRACE_HORIZON),
+        policy=lab.PolicySpec("psts", params={"floor": 0.1}))
+
+
+def phase_trace_sweep(dev, smi: str):
+    """12a: a seed sweep over a rate-scaled real trace on the card. The
+    engine call inside the sweep is timed (and its inputs kept for the
+    checks) by wrapping the batched backend's ``simulate_batch``."""
+    from repro_torch.lab import backends as lab_backends
+    base = trace_scenario()
+    calls = []
+    engine = lab_backends.simulate_batch
+
+    def timed(slot, works, powers, cfg, power_scale=None, *, device=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm = engine(slot, works, powers, cfg, power_scale=power_scale,
+                    device=device)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, slot, works, powers, cfg,
+                      power_scale))
+        return bm
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    lab_backends.simulate_batch = timed
+    try:
+        with warnings.catch_warnings():
+            # the horizon keeps the first 400 s of the scaled trace on
+            # purpose; the lab warns of every task it drops
+            warnings.filterwarnings("ignore",
+                                    message=".*arrive at/after horizon")
+            t0 = time.perf_counter()
+            results = lab.sweep(base=base,
+                                grid={"seed": range(TRACE_SEEDS)},
+                                backend="auto", device=dev,
+                                fifo_dispatch=True)
+            wall = time.perf_counter() - t0
+    finally:
+        lab_backends.simulate_batch = engine
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if [r.backend for r in results] != ["batched"] * TRACE_SEEDS:
+        fail(f"trace: the sweep ran on {sorted({r.backend for r in results})}"
+             f", expected batched")
+    if len(calls) != 1:
+        fail(f"trace: {len(calls)} engine calls, expected one batched call")
+    engine_s, slot, works, powers, cfg, scale = calls[0]
+    ignored = results[0].backend_options.get("ignored", [])
+    for flag in TRACE_IGNORED:
+        if flag not in ignored:
+            fail(f"trace: backend_options['ignored'] lacks {flag!r}: "
+                 f"{ignored}")
+    want = {"prefix_scan": 1 + cfg.n_slots,
+            "dispatch_work_prefix": 1 + cfg.n_slots,
+            "dispatch_positions": 0, "flash_attention": 0,
+            "flash_attention_tc": 0, "mamba_scan": 0}
+    if launches != want:
+        fail(f"trace: launch counts {launches}, expected {want}")
+    tasks = [r["arrived"] for r in results]
+    for r in results:
+        m = r.metrics
+        if not (m["completed"] > 0 and all(
+                math.isfinite(m[k]) for k in ("makespan", "mean_response",
+                                              "p99_response",
+                                              "moved_units"))):
+            fail(f"trace: non-finite or empty result: {m}")
+    fires = [r["trigger_fires"] for r in results]
+    # offered load: the work that arrives over the horizon, and in the
+    # busiest slot, over the cluster's capacity for that time
+    per_slot = np.stack([np.bincount(slot[b][slot[b] < cfg.n_slots],
+                                     weights=works[b][slot[b] < cfg.n_slots],
+                                     minlength=cfg.n_slots)
+                         for b in range(works.shape[0])])
+    cap = float(np.sum(powers)) * cfg.dt
+    load = per_slot.sum(axis=1) / (cap * cfg.n_slots)
+    log(f"[trace] offered load over the horizon {float(load.min())!r}.."
+        f"{float(load.max())!r}, busiest slot "
+        f"{float(per_slot.max()) / cap!r} of "
+        f"capacity, slots above capacity per seed "
+        f"{(per_slot > cap).sum(axis=1).tolist()}")
+    log(f"[trace] {TRACE_SEEDS} seeds x {N_NODES} nodes x {cfg.n_slots} "
+        f"slots, excerpt scaled {TRACE_SCALE}x: (B, M) = {works.shape}, "
+        f"{sum(tasks)} tasks ({min(tasks)}..{max(tasks)} a seed); wall "
+        f"{wall!r} s = host scaling and lowering {wall - engine_s!r} s + "
+        f"engine call {engine_s!r} s (transfers included); peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}; ignored "
+        f"{ignored}")
+    log(f"[trace] trigger fires per seed {fires}; mean response per seed "
+        f"{[r['mean_response'] for r in results]}; on "
+        f"{torch.cuda.get_device_name(0)} ({smi})")
+    for s in TRACE_SAMPLED:
+        t0 = time.perf_counter()
+        sm = simulate_scalar(slot[s], works[s], powers, cfg,
+                             power_scale=scale)
+        got = results[s].metrics
+        for k in FIELDS:
+            if not np.isclose(got[k], sm[k], rtol=1e-6, atol=0.0):
+                fail(f"trace: seed {s} {k}: batched {got[k]!r} vs scalar "
+                     f"{sm[k]!r}")
+        exact = all(got[k] == sm[k] for k in ("trigger_fires", "moved_units",
+                                               "makespan", "completed"))
+        log(f"[trace] seed {s} matches simulate_scalar at rtol 1e-6 "
+            f"({time.perf_counter() - t0:.1f}s; fires, moved volume, "
+            f"makespan and completions bit-identical: {exact}): "
+            + ", ".join(f"{k}={got[k]!r}/{sm[k]!r}" for k in FIELDS))
+    tensors = to_tensors(slot, works, powers, scale, device=dev)
+    del slot, works
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = _simulate_batch_torch(*tensors, cfg)
+    torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t0
+    for k, v in zip(FIELDS, (v.cpu().numpy() for v in out[:6])):
+        prev = np.array([r[k] for r in results], dtype=np.float64)
+        if not np.array_equal(prev, v.astype(np.float64)):
+            fail(f"trace: engine rerun differs in {k}")
+    log(f"[trace] engine rerun on the same tensors bit-identical; engine "
+        f"time {rerun_s!r} s (tensors already on the card)")
+    return launches
+
+
+def replay_scenario(policy: str, mode: str) -> lab.Scenario:
+    """trace-replay-16: the whole excerpt, constrained, with churn."""
+    return lab.Scenario(
+        name=f"trace/{policy}/{mode}",
+        cluster=lab.ClusterSpec(powers=REPLAY_POWERS, attrs=REPLAY_ATTRS,
+                                bandwidth=256.0),
+        workload=lab.WorkloadSpec(
+            trace=lab.TraceRef(
+                path=str(TRACE_FILE), format="google",
+                params={"constraints_path": str(TRACE_CONSTRAINTS),
+                        "eviction_mode": "requeue"},
+                machine_events=str(TRACE_MACHINES)),
+            horizon=None),
+        policy=lab.PolicySpec(policy, trigger_period=2.0,
+                              params={"floor": 0.05}
+                              if policy == "psts" else {},
+                              constraint_mode=mode))
+
+
+def phase_trace_replay(smi: str):
+    """12b: the excerpt replayed on the host event engine."""
+    tier0 = {}
+    for policy, mode in (("psts", "aware"), ("arrival_only", "blind")):
+        sc = replay_scenario(policy, mode)
+        t0 = time.perf_counter()
+        r = lab.run(sc)
+        run_s = time.perf_counter() - t0
+        if r.backend != "events":
+            fail(f"replay: ran on {r.backend}")
+        if r["completed"] != r["arrived"]:
+            fail(f"replay: {policy}/{mode} completed {r['completed']} of "
+                 f"{r['arrived']}")
+        for k in ("evictions", "failures", "joins", "resizes"):
+            if not r[k] > 0:
+                fail(f"replay: {policy}/{mode} {k} = {r[k]}")
+        for k in ("wait_by_tier", "tier_counts"):
+            if k not in r.extras:
+                fail(f"replay: {policy}/{mode} extras lack {k}")
+        tier0[(policy, mode)] = r.extras["wait_by_tier"]["0"]["mean_wait"]
+        log(f"[replay] {policy}/{mode}: {r['arrived']} tasks, "
+            f"{r['evictions']} evictions, {r['failures']} failures, "
+            f"{r['joins']} joins, {r['resizes']} resizes, mean wait "
+            f"{r['mean_wait']!r}, tier-0 mean wait "
+            f"{tier0[(policy, mode)]!r}, {r['migrations']} migrations; "
+            f"{run_s!r} s (host engine; {smi})")
+    if not tier0[("psts", "aware")] < tier0[("arrival_only", "blind")]:
+        fail(f"replay: psts/aware tier-0 wait {tier0[('psts', 'aware')]} "
+             f"not below arrival_only/blind's "
+             f"{tier0[('arrival_only', 'blind')]}")
+
+
+def geo_member(i: int, load: float) -> lab.Scenario:
+    cluster = lab.ClusterSpec(n_nodes=GEO_NODES, power_seed=i,
+                              bandwidth=256.0)
+    rate = load * float(cluster.resolve_powers().sum()) / EV_WORK_MEAN
+    return lab.Scenario(
+        name=f"dc{i}", cluster=cluster,
+        workload=lab.WorkloadSpec(process="poisson", horizon=GEO_HORIZON,
+                                  work_mean=EV_WORK_MEAN,
+                                  params={"rate": rate}),
+        policy=lab.PolicySpec("psts", trigger_period=1.0,
+                              params={"floor": 0.05}),
+        seed=i)
+
+
+def phase_federation(dev, smi: str):
+    """12c: the vectorized federation on the card, then the geo shape on
+    the host event model."""
+    fed = lab.Federation(
+        name="fed-8x12.5k-isolated",
+        members=tuple(scenario().replace(name=f"m{i}", seed=i)
+                      for i in range(FED_MEMBERS)),
+        topology=lab.TopologySpec(kind="isolated"))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = lab.run(fed, backend="federated", device=dev)
+    torch.cuda.synchronize()
+    fed_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if r.backend != "federated" or \
+            r.backend_options.get("model") != "fluid-batched":
+        fail(f"federation: ran on {r.backend} {r.backend_options}")
+    T = int(round(scenario().workload.horizon))
+    if not (launches["prefix_scan"] == 1 + T
+            and launches["dispatch_work_prefix"] == 1 + T):
+        fail(f"federation: launch counts {launches}, expected {1 + T} of "
+             f"the scan and dispatch kernels")
+    t0 = time.perf_counter()
+    sweep = lab.sweep(list(fed.members), backend="batched", device=dev)
+    sweep_s = time.perf_counter() - t0
+    if r.extras["members"] != [s.to_dict() for s in sweep]:
+        fail("federation: members differ from a batched sweep of the same "
+             "scenarios")
+    for k in ("arrived", "completed"):
+        if r[k] != sum(s[k] for s in sweep):
+            fail(f"federation: aggregate {k} {r[k]} is not the members' sum")
+    log(f"[federation] {FED_MEMBERS} x {N_NODES} nodes isolated: "
+        f"fluid-batched, {r['arrived']} tasks, mean response "
+        f"{r['mean_response']!r}; {fed_s!r} s (a batched sweep of the "
+        f"members {sweep_s!r} s); launches {launches}")
+
+    geo = lab.Federation(
+        name="fed-geo-4x256",
+        members=tuple(geo_member(i, x) for i, x in enumerate(GEO_LOADS)),
+        topology=lab.TopologySpec(kind="full", bandwidth=8.0, latency=2.0),
+        exchange_period=4.0)
+    t0 = time.perf_counter()
+    g = lab.run(geo, backend="federated", device=dev)
+    geo_s = time.perf_counter() - t0
+    if g.backend_options["model"] != "async-events":
+        fail(f"federation: geo ran as {g.backend_options['model']}")
+    if g["completed"] != g["arrived"]:
+        fail(f"federation: geo completed {g['completed']} of {g['arrived']}")
+    wan = g.extras["wan"]
+    if not wan["migrations"] > 0:
+        fail(f"federation: no WAN migrations ({wan})")
+    iso = lab.run(geo.replace(topology=lab.TopologySpec(kind="isolated")),
+                  backend="federated", vectorize=False)
+    if not g["mean_response"] < iso["mean_response"]:
+        fail(f"federation: geo mean response {g['mean_response']} not below "
+             f"isolated {iso['mean_response']}")
+    again = lab.run(geo, backend="federated", device=dev)
+    if json.dumps(again.to_dict()) != json.dumps(g.to_dict()):
+        fail("federation: a rerun of the geo federation differs")
+    log(f"[federation] geo 4 x {GEO_NODES} nodes (loads {GEO_LOADS}): "
+        f"{g['arrived']} tasks, mean response {g['mean_response']!r} vs "
+        f"isolated {iso['mean_response']!r}; WAN {wan['migrations']} "
+        f"migrations, {wan['moved_units']!r} units, {wan['rejected']} "
+        f"rejected, {wan['epochs']} epochs; rerun equal; {geo_s!r} s per "
+        f"run (host event model; {smi})")
+
+
+def phase_dag(smi: str):
+    """12d: a random-DAG workload on the host event engine."""
+    base = events_scenario()
+    cluster = lab.ClusterSpec(n_nodes=DAG_NODES, power_low=1, power_high=10,
+                              power_seed=0)
+    rate = EV_LOAD * float(cluster.resolve_powers().sum()) / EV_WORK_MEAN
+    sc = base.replace(
+        name="dag-256", cluster=cluster,
+        workload=lab.WorkloadSpec(process="poisson", horizon=EV_HORIZON,
+                                  work_mean=EV_WORK_MEAN,
+                                  params={"rate": rate},
+                                  dag={"kind": "random"}))
+    reason = lab.get_backend("batched").eligible(sc)
+    if reason != DAG_REASON:
+        fail(f"dag: batched gave {reason!r}, expected {DAG_REASON!r}")
+    t0 = time.perf_counter()
+    r = lab.run(sc)
+    run_s = time.perf_counter() - t0
+    if r["completed"] != r["arrived"]:
+        fail(f"dag: completed {r['completed']} of {r['arrived']}")
+    census = r.extras["work_census"]
+    tol = 1e-9 * max(census["admitted"], 1.0)
+    if not (census["in_flight"] == 0.0
+            and abs(census["conservation_gap"]) <= tol
+            and abs(census["completed"] - census["admitted"]) <= tol):
+        fail(f"dag: the work census does not close: {census}")
+    dag = sc.workload.materialize(sc.seed).dag
+    log(f"[dag] {DAG_NODES} nodes, random DAG: {r['arrived']} tasks, "
+        f"{dag.k} edges, depth {dag.depth()}; makespan {r['makespan']!r}, "
+        f"cp_stretch {r['cp_stretch']!r}, mean response "
+        f"{r['mean_response']!r}; census {census}; {run_s!r} s (host "
+        f"engine; {smi})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -1436,6 +1822,16 @@ def main() -> int:
     phase_hybrid_vs_plain(dev)
     torch.cuda.empty_cache()
     phase_events(dev, smi)
+    t12 = time.perf_counter()
+    launches = phase_trace_sweep(dev, smi)
+    for k in kernels[:2]:
+        k["trace_launches"] = launches[k["name"]]
+    torch.cuda.empty_cache()
+    phase_trace_replay(smi)
+    phase_federation(dev, smi)
+    torch.cuda.empty_cache()
+    phase_dag(smi)
+    log(f"[phase 12] {time.perf_counter() - t12:.1f}s")
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -4,19 +4,30 @@
 // Replaces: src/repro/kernels/prefix_scan.py::prefix_scan_pallas. The TPU
 // kernel walks a row's column blocks in grid order and carries the running
 // row total in VMEM scratch from one grid step to the next. Hopper blocks run
-// in no order, so here the carry lives inside one block: block r owns row r,
-// loops over the row's column tiles and keeps the running total in a register.
+// in no order, so here the carry lives inside one block: block r owns row r.
 //
-// Bound: bytes. Each element is read once and written once (16 B in float64)
-// for one add, so the card's memory rate bounds it: a (128, 1.38M) call moves
-// 2.8 GB, >= 0.84 ms at 3.35 TB/s. Each tile is loaded and stored coalesced
-// through shared memory; the in-tile scan is serial over a thread's
-// consecutive items, then warp shuffles, then the carry. One block per row
-// means a call with fewer rows than SMs leaves SMs idle; the main path has
-// 128 rows (one per scenario), which is close to the card's 132 SMs.
+// Bits: out[j] = fl(c[j] - x[j]) with c[j] = fl(c[j-1] + x[j]), the running
+// sum taken strictly left to right -- bit for bit what the plain version
+// (torch.cumsum(x) - x on the CPU) and the numpy oracle (np.cumsum(x) - x in
+// simulate_scalar) compute. The batched engine feeds these values to
+// searchsorted, a discrete branch: a task whose position lies within a few
+// ulps of an interval edge takes its owner from the last bits of the scan,
+// and any other association order (a blocked or tree scan) moves such a
+// task to the neighbouring node on bursty traces. Floating-point addition
+// does not associate, so this order admits no parallel split: one thread
+// walks the row.
 //
-// Determinism: the association order is fixed by the tile shape, so a run
-// is bit-reproducible (torch.cumsum on CUDA floats is not).
+// Shape of the walk: the block stages the row through shared memory in
+// tiles of kTile doubles, two buffers. While lane 0 of warp 0 walks tile t
+// (one dependent add per element; the loads, a group ahead, and the
+// subtraction are off the chain), the other warps store tile t-1 and load
+// tile t+1 coalesced, so the walk runs at the add chain's latency and
+// memory stays hidden. A zero past the row's end adds nothing (c + 0 = c).
+//
+// Bound: bytes. Each element is read once and written once (16 B in
+// float64); a (128, 1.38M) call moves 2.8 GB, >= 0.84 ms at 3.35 TB/s. The
+// add chain of one row bounds the time from below far above that: n
+// dependent float64 adds.
 
 #include <cuda_runtime.h>
 
@@ -25,98 +36,107 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;
-constexpr int kTile = kThreads * kItems;
-constexpr int kWarps = kThreads / 32;
-
-// one padding word per 32 doubles keeps a thread's consecutive items off
-// the banks of its neighbours
-__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
-
-__device__ __forceinline__ double warp_inclusive_sum(double v, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const double u = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += u;
-  }
-  return v;
-}
+constexpr int kTile = 2048;
+constexpr int kMovers = kThreads - 32;                    // warps 1..7
+constexpr int kMoves = (kTile + kMovers - 1) / kMovers;   // elements each
+constexpr int kGroup = 8;                                 // walker's batch
 
 __global__ void __launch_bounds__(kThreads)
-exclusive_scan_rows(const double* __restrict__ x, double* __restrict__ out,
-                    int64_t n) {
-  __shared__ double tile[kTile + kTile / 32];
-  __shared__ double warp_incl[kWarps];
+sequential_scan_rows(const double* __restrict__ x, double* __restrict__ out,
+                     int64_t n) {
+  __shared__ double buf[2][kTile];
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const double* xr = x + static_cast<int64_t>(blockIdx.x) * n;
   double* outr = out + static_cast<int64_t>(blockIdx.x) * n;
+  const int64_t n_tiles = (n + kTile - 1) / kTile;
 
-  double carry = 0.0;
-  for (int64_t start = 0; start < n; start += kTile) {
-    // coalesced load; past the ragged edge the tile holds zeros
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = k * kThreads + tid;
-      const int64_t j = start + i;
-      tile[padded(i)] = j < n ? xr[j] : 0.0;
-    }
-    __syncthreads();
+  // prologue: every thread loads tile 0
+  for (int i = tid; i < kTile; i += kThreads) {
+    buf[0][i] = i < n ? xr[i] : 0.0;
+  }
+  __syncthreads();
 
-    // serial exclusive scan over this thread's consecutive items
-    double v[kItems];
-    double run = 0.0;
+  double c = 0.0;  // the running sum; only lane 0 of warp 0 keeps it
+  for (int64_t t = 0; t < n_tiles; ++t) {
+    const int cur = static_cast<int>(t & 1);
+    if (tid == 0) {
+      // groups of kGroup: the next group's loads are issued before this
+      // group's adds and stores, so no load waits inside the add chain
+      // (past the row's end the tile holds zeros, and those outputs are
+      // never stored)
+      double* b = buf[cur];
+      double x[kGroup], nx[kGroup];
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const double xv = tile[padded(tid * kItems + k)];
-      v[k] = run;
-      run += xv;
-    }
-    // exclusive scan of the thread totals: within the warp, then across warps
-    const double incl = warp_inclusive_sum(run, lane);
-    double excl = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) excl = 0.0;
-    if (lane == 31) warp_incl[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      const double s = lane < kWarps ? warp_incl[lane] : 0.0;
-      const double si = warp_inclusive_sum(s, lane);
-      if (lane < kWarps) warp_incl[lane] = si;
-    }
-    __syncthreads();
-    const double offset = (warp > 0 ? warp_incl[warp - 1] : 0.0) + excl;
-    const double tile_total = warp_incl[kWarps - 1];
+      for (int k = 0; k < kGroup; ++k) x[k] = b[k];
+      for (int j = 0; j < kTile; j += kGroup) {
+        if (j + kGroup < kTile) {
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      tile[padded(tid * kItems + k)] = carry + (offset + v[k]);
+          for (int k = 0; k < kGroup; ++k) nx[k] = b[j + kGroup + k];
+        }
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          c += x[k];
+          b[j + k] = c - x[k];
+        }
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) x[k] = nx[k];
+      }
+    } else if (tid >= 32) {
+      // warps 1..7: store tile t-1 from the other buffer, then load tile
+      // t+1 into it, all of a thread's loads in flight at once; each thread
+      // reads its elements before it writes them
+      double* o = buf[cur ^ 1];
+      const int64_t prev = (t - 1) * kTile;
+      const int64_t next = (t + 1) * kTile;
+      if (t > 0) {
+#pragma unroll
+        for (int k = 0; k < kMoves; ++k) {
+          const int i = tid - 32 + k * kMovers;
+          if (i < kTile && prev + i < n) outr[prev + i] = o[i];
+        }
+      }
+      if (next < n) {
+        double v[kMoves];
+#pragma unroll
+        for (int k = 0; k < kMoves; ++k) {
+          const int i = tid - 32 + k * kMovers;
+          v[k] = i < kTile && next + i < n ? xr[next + i] : 0.0;
+        }
+#pragma unroll
+        for (int k = 0; k < kMoves; ++k) {
+          const int i = tid - 32 + k * kMovers;
+          if (i < kTile) o[i] = v[k];
+        }
+      }
     }
     __syncthreads();
-
-    // coalesced store
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = k * kThreads + tid;
-      const int64_t j = start + i;
-      if (j < n) outr[j] = tile[padded(i)];
-    }
-    carry += tile_total;
-    __syncthreads();  // the next tile overwrites tile[] and warp_incl[]
+  }
+  // epilogue: store the last tile
+  const int64_t last = (n_tiles - 1) * kTile;
+  const double* b = buf[(n_tiles - 1) & 1];
+  for (int i = tid; i < kTile; i += kThreads) {
+    if (last + i < n) outr[last + i] = b[i];
   }
 }
 
 }  // namespace
 
 // out[r, j] = x[r, 0] + ... + x[r, j-1] for a row-major (rows, n) float64
-// array on `device`, launched on `stream`. Returns a cudaError_t (0 = ok).
+// array on `device`, launched on `stream`, with the plain version's bits
+// (see above). Returns a cudaError_t (0 = ok).
 extern "C" int prefix_scan_f64(const double* x, double* out, int64_t rows,
                                int64_t n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (current != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (rows <= 0 || n <= 0) return 0;
   if (rows > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  exclusive_scan_rows<<<static_cast<unsigned>(rows), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  sequential_scan_rows<<<static_cast<unsigned>(rows), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(x, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,10 @@
 // of the EARLIER tokens of row r routed to e (the backlog the slot's own
 // dispatch wave builds in front of j), and fill[r, e] is the total weight
 // routed to e. A token whose destination lies outside [0, E) (-1 = none) gets
-// prefix 0 and adds nothing.
+// prefix 0 and adds nothing. Given init (R, E), each destination's sum
+// starts there instead of at 0: prefix and fill then include init[r, e],
+// and fill = ((init + w1) + w2) + ..., the order in which
+// np.add.at(queue, owner, works) adds a slot's wave to the queues.
 //
 // Replaces: src/repro/kernels/psts_dispatch.py::dispatch_work_prefix_pallas.
 // The TPU kernel builds a (block, 128) one-hot in VMEM and scans it down the
@@ -296,7 +299,8 @@ work_prefix_walk(const int32_t* __restrict__ expert_idx,
                  const int2* __restrict__ stage_je,
                  const double* __restrict__ stage_w,
                  const int4* __restrict__ meta, double* __restrict__ prefix,
-                 double* __restrict__ fill, int64_t rows, int64_t n_tokens,
+                 double* __restrict__ fill, const double* __restrict__ init,
+                 int64_t rows, int64_t n_tokens,
                  int n_chunks, int n_experts, int ranges,
                  bool acc_in_shared) {
   extern __shared__ double acc_smem[];
@@ -315,7 +319,9 @@ work_prefix_walk(const int32_t* __restrict__ expert_idx,
     double* pr = prefix + row * n_tokens;
     double* fr = fill + row * static_cast<int64_t>(n_experts);
     double* acc = acc_in_shared ? acc_smem : fr + lo;
-    for (int e = lane; e < width; e += 32) acc[e] = 0.0;
+    const double* ir =
+        init ? init + row * static_cast<int64_t>(n_experts) + lo : nullptr;
+    for (int e = lane; e < width; e += 32) acc[e] = ir ? ir[e] : 0.0;
     __syncwarp();
 
     for (int c0 = 0; c0 < n_chunks; c0 += 32) {
@@ -611,13 +617,16 @@ cudaError_t setup(int device, const DeviceSetup** out) {
 
 // prefix (rows, n_tokens) and fill (rows, n_experts), row-major float64, from
 // expert_idx (rows, n_tokens) int32 and weights (rows, n_tokens) float64 on
-// `device`, in two launches on `stream`, through staging buffers of rows x
-// chunks x kChunk tokens (stage_je int2, stage_w double) and rows x chunks
-// int4 (meta), chunks = ceil(n_tokens / kChunk). Returns a cudaError_t (0 = ok).
+// `device`, each destination's sum started at init (rows, n_experts) float64
+// or at 0 when init is null, in two launches on `stream`, through staging
+// buffers of rows x chunks x kChunk tokens (stage_je int2, stage_w double)
+// and rows x chunks int4 (meta), chunks = ceil(n_tokens / kChunk). Returns a
+// cudaError_t (0 = ok).
 extern "C" int dispatch_work_prefix_f64(const int32_t* expert_idx,
                                         const double* weights, double* prefix,
                                         double* fill, void* stage_je,
                                         double* stage_w, void* meta,
+                                        const double* init,
                                         int64_t rows, int64_t n_tokens,
                                         int64_t n_experts, int device,
                                         void* stream) {
@@ -660,8 +669,8 @@ extern "C" int dispatch_work_prefix_f64(const int32_t* expert_idx,
   work_prefix_walk<<<dim3(static_cast<unsigned>(ranges), grid_rows), 32,
                      acc_in_shared ? static_cast<int>(acc_bytes) : 0, st>>>(
       expert_idx, weights, static_cast<const int2*>(stage_je), stage_w,
-      static_cast<const int4*>(meta), prefix, fill, rows, n_tokens, n_chunks,
-      e, ranges, acc_in_shared);
+      static_cast<const int4*>(meta), prefix, fill, init, rows, n_tokens,
+      n_chunks, e, ranges, acc_in_shared);
   return static_cast<int>(cudaGetLastError());
 }
 

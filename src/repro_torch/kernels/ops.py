@@ -36,14 +36,15 @@ def prefix_scan(x: torch.Tensor) -> torch.Tensor:
 
 
 def dispatch_work_prefix(expert_idx: torch.Tensor, weights: torch.Tensor,
-                         n_experts: int):
-    """``(prefix (R, T), fill (R, E))``: per row, the weight of earlier
-    same-destination tokens and the per-destination totals (on the card two
-    launches, counted as one)."""
+                         n_experts: int, init: torch.Tensor | None = None):
+    """``(prefix (R, T), fill (R, E))``: per row, ``init`` (R, E) (zeros if
+    None) plus the weight of earlier same-destination tokens, and plus the
+    per-destination totals, each destination's sum left to right (on the
+    card two launches, counted as one)."""
     if _on_cuda(weights):
         return _dispatch.dispatch_work_prefix_cuda(expert_idx, weights,
-                                                   n_experts)
-    return ref.dispatch_work_prefix_ref(expert_idx, weights, n_experts)
+                                                   n_experts, init)
+    return ref.dispatch_work_prefix_ref(expert_idx, weights, n_experts, init)
 
 
 def dispatch_positions(expert_idx: torch.Tensor, base: torch.Tensor,

@@ -40,7 +40,7 @@ LAUNCHES = 0
 POSITION_LAUNCHES = 0
 
 _SIGNATURES = {
-    "dispatch_work_prefix_f64": [ctypes.c_void_p] * 7 + [
+    "dispatch_work_prefix_f64": [ctypes.c_void_p] * 8 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.c_void_p],
     "dispatch_positions_levels_i32": [ctypes.c_void_p] * 5 + [
@@ -51,12 +51,14 @@ _CHUNK = 16_384   # kChunk in csrc/psts_dispatch.cu: a staging region's tokens
 
 
 def dispatch_work_prefix_cuda(expert_idx: torch.Tensor, weights: torch.Tensor,
-                              n_experts: int):
+                              n_experts: int, init: torch.Tensor | None = None):
     """``expert_idx`` (R, T) int32 destination per token (outside ``[0,
-    n_experts)`` = none), ``weights`` (R, T) float64, both contiguous on one
-    CUDA device. Returns ``(prefix (R, T), fill (R, n_experts))``: the
-    weight of earlier same-destination tokens in the row, and the
-    per-destination totals."""
+    n_experts)`` = none), ``weights`` (R, T) float64, ``init`` (R,
+    n_experts) float64 starting sums or None (zeros), all contiguous on one
+    CUDA device. Returns ``(prefix (R, T), fill (R, n_experts))``: ``init``
+    plus the weight of earlier same-destination tokens in the row, and
+    ``init`` plus the per-destination totals, each destination's sum taken
+    left to right (``ref.dispatch_work_prefix_ref``'s bits)."""
     global LAUNCHES
     if expert_idx.device.type != "cuda" or weights.device != expert_idx.device:
         raise ValueError(f"dispatch_work_prefix_cuda needs both tensors on one "
@@ -76,6 +78,12 @@ def dispatch_work_prefix_cuda(expert_idx: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"n_experts must lie in [1, 2**31 - 1], got "
                          f"{n_experts}")
     r, t = expert_idx.shape
+    if init is not None and (
+            init.device != weights.device or init.dtype != torch.float64
+            or init.shape != (r, n_experts) or not init.is_contiguous()):
+        raise ValueError(f"init must be a contiguous float64 ({r}, "
+                         f"{n_experts}) tensor on {weights.device}, got "
+                         f"{init.dtype} {tuple(init.shape)} on {init.device}")
     if t > _INT32_MAX:
         raise ValueError(f"a row holds at most 2**31 - 1 tokens, got {t}")
     dev = weights.device
@@ -94,7 +102,8 @@ def dispatch_work_prefix_cuda(expert_idx: torch.Tensor, weights: torch.Tensor,
     err = lib.dispatch_work_prefix_f64(
         expert_idx.data_ptr(), weights.data_ptr(), prefix.data_ptr(),
         fill.data_ptr(), stage_je.data_ptr(), stage_w.data_ptr(),
-        meta.data_ptr(), r, t, n_experts, dev.index,
+        meta.data_ptr(), None if init is None else init.data_ptr(), r, t,
+        n_experts, dev.index,
         _build.stream_of(weights))
     _build.check("psts_dispatch", "dispatch_work_prefix", err)
     LAUNCHES += 1

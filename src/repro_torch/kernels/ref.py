@@ -24,20 +24,24 @@ def prefix_scan_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def dispatch_work_prefix_ref(expert_idx: torch.Tensor, weights: torch.Tensor,
-                             n_experts: int):
-    """Per row: the summed weight of EARLIER tokens with the same
-    destination, and the per-destination totals.
+                             n_experts: int, init: torch.Tensor | None = None):
+    """Per row: each destination's running sum of its tokens' weights, and
+    the sum each token finds before its own.
 
     ``expert_idx`` (R, T) integer destinations (outside ``[0, n_experts)``,
-    e.g. -1, means none), ``weights`` (R, T). Returns ``(prefix (R, T),
-    fill (R, E))``. Reference semantics: the scalar loop of
-    ``runtime.vector_backend.simulate_scalar``.
+    e.g. -1, means none), ``weights`` (R, T), ``init`` (R, E) the sums'
+    starting values (0 if None). Returns ``(prefix (R, T), fill (R, E))``:
+    ``prefix`` is ``init`` plus the weight of the EARLIER tokens with the
+    same destination (0 for a token without one), ``fill`` is ``init`` plus
+    all of them. Reference semantics, bit for bit: the ordered loop of
+    ``runtime.vector_backend.simulate_scalar`` (``acc[e] += w`` in token
+    order, as ``np.add.at`` adds), whose last bits the engine's branches
+    see.
 
-    Sort-by-destination segmented scan, so it scales to E = 12,500 where a
-    one-hot would not: tokens are stably sorted by ``row * E + dest`` (index
-    order kept within a destination), each destination's run is scanned by
-    Hillis-Steele doubling (log2 of the longest run steps, no cancellation
-    against a running row total), and the results scatter back.
+    Tokens are stably sorted by ``row * E + dest`` (index order kept within
+    a destination); step k adds the k-th token of every destination's run
+    at once, so the loop runs as many steps as the longest run, vectorized
+    over destinations (E = 12,500 at full width).
     """
     r, t = expert_idx.shape
     e = int(n_experts)
@@ -48,36 +52,27 @@ def dispatch_work_prefix_ref(expert_idx: torch.Tensor, weights: torch.Tensor,
                       torch.full_like(expert_idx, r * e, dtype=torch.long))
     key = key.reshape(-1)
     order = torch.argsort(key, stable=True)
+    n_valid = int(valid.sum())
+    order = order[:n_valid]          # the sentinel key r * e sorts last
     k_s = key[order]
-    w_s = torch.where(valid, weights, torch.zeros_like(weights)).reshape(-1)
-    w_s = w_s[order]
-    inc = w_s.clone()
-    shift = 1
-    n = inc.numel()
-    while shift < n:
-        same = k_s[shift:] == k_s[:-shift]
-        if not bool(same.any()):
-            break
-        inc = torch.cat([inc[:shift],
-                         inc[shift:] + torch.where(same, inc[:-shift],
-                                                   torch.zeros((), dtype=dt,
-                                                               device=dev))])
-        shift *= 2
-    # exclusive = the inclusive value of the previous token of the same run
-    exc = torch.zeros_like(inc)
-    if n > 1:
-        exc[1:] = torch.where(k_s[1:] == k_s[:-1], inc[:-1],
-                              torch.zeros((), dtype=dt, device=dev))
-    prefix = torch.empty_like(exc)
-    prefix[order] = exc
-    prefix = torch.where(valid, prefix.reshape(r, t), torch.zeros((), dtype=dt,
-                                                                 device=dev))
-    fill = torch.zeros(r * e + 1, dtype=dt, device=dev)
-    if n:
-        last = torch.ones(n, dtype=torch.bool, device=dev)
-        last[:-1] = k_s[1:] != k_s[:-1]
-        fill[k_s[last]] = inc[last]
-    return prefix, fill[:r * e].reshape(r, e)
+    w_s = weights.reshape(-1)[order]
+    acc = (torch.zeros(r * e, dtype=dt, device=dev) if init is None
+           else init.to(dt).reshape(-1).clone())
+    prefix = torch.zeros(r * t, dtype=dt, device=dev)
+    if n_valid:
+        at = torch.arange(n_valid, device=dev)
+        first = torch.ones(n_valid, dtype=torch.bool, device=dev)
+        first[1:] = k_s[1:] != k_s[:-1]
+        rank = at - torch.cummax(torch.where(first, at, 0), dim=0).values
+        by_rank = torch.argsort(rank, stable=True)
+        done = 0
+        for count in torch.bincount(rank).tolist():
+            sel = by_rank[done:done + count]   # one token of each run
+            done += count
+            keys = k_s[sel]
+            prefix[order[sel]] = acc[keys]
+            acc[keys] = acc[keys] + w_s[sel]
+    return prefix.reshape(r, t), acc.reshape(r, e)
 
 
 def dispatch_positions_ref(expert_idx: torch.Tensor, base: torch.Tensor,

@@ -19,8 +19,9 @@ backend, one batched run on the CUDA device through the hand-written
 kernels (``device="cpu"`` runs the plain PyTorch versions instead); small
 or non-uniform sweeps and per-task policies run on the event engine.
 Results carry the same canonical :class:`RunResult` schema and fingerprints
-as ``repro.lab``. The ``federated`` and ``online`` backends come with later
-slices of the port.
+as ``repro.lab``. Trace replays (``TraceRef``, node ``attrs``), DAG
+workloads and federations (``lab.Federation``, the ``federated`` backend)
+run as there; the ``online`` backend comes with a later slice of the port.
 """
 
 from .api import BATCH_THRESHOLD, expand_grid, run, sweep
@@ -49,4 +50,18 @@ __all__ = [
     "METRIC_SCHEMA", "RunResult", "make_metrics",
     "ClusterSpec", "FaultSpec", "ObsSpec", "PolicySpec", "Scenario",
     "TraceRef", "WorkloadSpec", "resolve_fault_schedule",
+    "Federation", "LinkSpec", "TopologySpec",
 ]
+
+# federation specs re-export lazily (PEP 562): repro_torch.federation itself
+# imports repro_torch.lab.specs, so an eager import here would deadlock
+# whichever package is imported first. By first attribute access both sides
+# are done.
+_FEDERATION_EXPORTS = ("Federation", "LinkSpec", "TopologySpec")
+
+
+def __getattr__(name):
+    if name in _FEDERATION_EXPORTS:
+        from .. import federation
+        return getattr(federation, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

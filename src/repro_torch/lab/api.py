@@ -12,7 +12,9 @@ backend, as in the JAX package. ``device`` is the port's own: the batched
 backend runs on the CUDA device unless ``device="cpu"``. The events and
 legacy backends are host code and take no options, so ``sweep`` hands
 ``device`` to the batched backend alone — one call can say where a sweep
-runs if it is batched, whichever backend auto-dispatch picks.
+runs if it is batched, whichever backend auto-dispatch picks. A sweep of
+``Federation`` specs runs on the federated backend, whose vectorized
+(link-free) path takes ``device`` the same way.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ BATCH_THRESHOLD = 8
 
 def run(scenario: Scenario, backend: str = "events",
         **backend_options) -> RunResult:
-    """Execute one scenario on one backend; raises ``BackendError`` with the
-    reason when the spec is not expressible there (or the backend is not
-    ported yet)."""
+    """Execute one scenario (or ``repro_torch.federation.Federation``) on one
+    backend; raises ``BackendError`` with the reason when the spec is not
+    expressible there (or the backend is not ported yet)."""
     return get_backend(backend).run(scenario, **backend_options)
 
 
@@ -61,7 +63,9 @@ def sweep(scenarios: list[Scenario] | None = None, *,
     ``>= batch_threshold`` batched-eligible scenarios to the batched backend
     in one call, and the event engine otherwise. Any explicit backend name
     forces that backend for every scenario. ``device`` reaches the batched
-    backend only (the host backends have no device to pick).
+    backend only (the host backends have no device to pick), and the
+    federated backend's vectorized path; a sweep of federations runs on the
+    federated backend.
     """
     if scenarios is None:
         if base is None:
@@ -75,9 +79,30 @@ def sweep(scenarios: list[Scenario] | None = None, *,
         return []
 
     batched = get_backend("batched")
-    # a seed axis over one trace replays identical workloads
+    # federations (no .workload, their own backend) dispatch as a unit;
+    # ``device`` reaches the federated backend's vectorized path
+    if all(getattr(sc, "is_federation", False) for sc in scenarios):
+        if backend == "auto":
+            backend = "federated"
+        if backend == "federated" and "dt" in backend_options:
+            backend_options.pop("dt")  # slot width is batched-only
+            warnings.warn("sweep dispatched to the 'federated' backend; "
+                          "the batched-only 'dt' option is ignored",
+                          stacklevel=2)
+        chosen = get_backend(backend)
+        for sc in scenarios:  # fail fast, before any federation has run
+            chosen.check(sc)
+        return [chosen.run(sc, **backend_options) for sc in scenarios]
+    # a seed axis over one *unscaled* trace replays identical workloads —
+    # flag it regardless of backend. A scaled trace (TraceRef(scale=N))
+    # resamples per seed, so its seed axis is a real ensemble.
+    def _replays_verbatim(sc) -> bool:
+        wl = getattr(sc, "workload", None)
+        if wl is None or not wl.is_trace:
+            return False
+        return wl.trace_path is not None or wl.trace.scale is None
     if (len(scenarios) > 1
-            and all(sc.workload.is_trace for sc in scenarios)
+            and all(_replays_verbatim(sc) for sc in scenarios)
             and len({sc.workload.trace_files() for sc in scenarios}) == 1
             and len({sc.seed for sc in scenarios}) > 1):
         warnings.warn("trace workloads ignore the seed axis — these "
@@ -98,6 +123,11 @@ def sweep(scenarios: list[Scenario] | None = None, *,
         return batched.run_many(scenarios, **backend_options)
     if backend != "batched":
         backend_options.pop("device", None)
+        if "dt" in backend_options:
+            backend_options.pop("dt")  # slot width is batched-only
+            warnings.warn(f"sweep dispatched to the {backend!r} backend; "
+                          f"the batched-only 'dt' option is ignored",
+                          stacklevel=2)
     chosen = get_backend(backend)
     for sc in scenarios:  # fail fast, before any scenario has run
         chosen.check(sc)

@@ -1,4 +1,4 @@
-"""Backend protocol, the registry, and the three ported execution surfaces.
+"""Backend protocol + the three registered execution surfaces.
 
 * ``"events"``  — the scalar discrete-event engine (``runtime.ClusterRuntime``):
   full fidelity, per-task state, any registered policy, faults, migration
@@ -13,10 +13,12 @@
   arrival staggering; it alone derives crossover points (Tables 6-7). Host
   code, like ``events``.
 
-The JAX package's other backends (``federated``, ``online``) are not ported
-yet: :func:`get_backend` raises a :class:`BackendError` that says so.
-Eligibility reasons and results are those of ``repro.lab.backends``, word
-for word, so the two packages can be held against each other.
+The fourth, ``federated``, registers from :mod:`repro_torch.federation`
+(imported lazily by :func:`get_backend`). The JAX package's ``online``
+backend is not ported yet: :func:`get_backend` raises a
+:class:`BackendError` that says so. Eligibility reasons and results are
+those of ``repro.lab.backends``, word for word, so the two packages can be
+held against each other.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..runtime.policies import PstsPolicy, make_policy
 from ..runtime.runtime import ClusterRuntime, InfeasibleTaskError
 from ..runtime.vector_backend import VectorConfig, simulate_batch
 from ..runtime.workload import ARRIVAL_PROCESSES, batch_slots
+from ..traces import TraceSchema
 from .result import RunResult, make_metrics
 from .specs import Scenario, resolve_fault_schedule
 
@@ -63,7 +66,7 @@ BATCHED_POLICIES = ("arrival_only", "psts")
 _COST_KEYS = tuple(f.name for f in dataclasses.fields(PstsPolicy))
 
 # the JAX package's backends that later slices of the port bring
-NOT_PORTED = ("federated", "online")
+NOT_PORTED = ("online",)
 
 
 class BackendError(ValueError):
@@ -102,6 +105,10 @@ def get_backend(name: str) -> Backend:
             f"backend {name!r} is not ported to repro_torch yet (a later "
             f"slice of the port brings it); run it with the JAX package's "
             f"repro.lab, or use the 'events' or 'batched' backend")
+    if name == "federated" and name not in BACKENDS:
+        # registration lives in repro_torch.federation, which imports this
+        # module; importing it eagerly at module top would be a cycle
+        from ..federation import backend as _federation_backend  # noqa: F401
     if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r}; have {sorted(BACKENDS)}")
     return BACKENDS[name]
@@ -163,8 +170,7 @@ def _dag_problem(scenario: Scenario) -> str | None:
     """A DAG spec that cannot be realized (explicit edges sized for a
     different task count, a bad generator param) must surface as an
     eligibility reason, not a mid-run traceback. Trace workloads are
-    covered by :func:`_trace_problem`'s materialization. (Until the graphs
-    slice of the port brings DAG realization, every DAG lands here.)"""
+    covered by :func:`_trace_problem`'s materialization."""
     if scenario.workload.dag is None or scenario.workload.is_trace:
         return None
     try:
@@ -175,29 +181,40 @@ def _dag_problem(scenario: Scenario) -> str | None:
 
 
 def _trace_problem(scenario: Scenario) -> str | None:
-    """A missing/unparseable trace must be an eligibility reason, not a
-    mid-run traceback after the 'backends' report said eligible. (The JAX
-    package also checks a TraceRef's machine_events companion here; the
-    traces slice of the port brings TraceRef.)"""
+    """A missing/unparseable trace (or machine_events companion) must be an
+    eligibility reason, not a mid-run traceback after the 'backends' report
+    said eligible."""
     if not scenario.workload.is_trace:
         return None
-    label = scenario.workload.trace_path
+    label = (scenario.workload.trace_path
+             or scenario.workload.trace.path)
     try:  # memoized: the run itself reuses this materialization
         scenario.workload.materialize(scenario.seed)
     except Exception as exc:  # noqa: BLE001 — surface any load failure
         return f"trace {label!r} unreadable: {exc}"
+    trace = scenario.workload.trace
+    if trace is not None and trace.machine_events:
+        wl = scenario.workload.materialize(scenario.seed)
+        try:
+            sched = trace.load_machine_events(
+                t_zero=getattr(wl, "t_zero_raw", 0.0))
+        except Exception as exc:  # noqa: BLE001
+            return (f"machine_events {trace.machine_events!r} unreadable: "
+                    f"{exc}")
+        if sched.n_machines > scenario.cluster.size:
+            return (f"machine_events {trace.machine_events!r} describes "
+                    f"{sched.n_machines} machines but the cluster has "
+                    f"{scenario.cluster.size} nodes")
     return None
 
 
 def _constraint_problem(scenario: Scenario) -> str | None:
     """Constrained traces must be satisfiable on this cluster: every
-    constraint attribute declared, every task with >= 1 feasible node.
-    Duck-typed on the workload's ``constrained`` flag (a trace schema's):
-    the plain ``Workload`` a bare CSV materializes to carries none."""
+    constraint attribute declared, every task with >= 1 feasible node."""
     if not scenario.workload.is_trace:
         return None
     wl = scenario.workload.materialize(scenario.seed)
-    if not getattr(wl, "constrained", False):
+    if not isinstance(wl, TraceSchema) or not wl.constrained:
         return None
     attrs = scenario.cluster.resolve_attrs()
     names = tuple(sorted(attrs)) if attrs else ()
@@ -241,21 +258,31 @@ def build_events_runtime(scenario: Scenario, **runtime_extra):
 def assemble_events_result(scenario: Scenario, rt, wl, ins, *,
                            backend: str, backend_options: dict) -> RunResult:
     """Shared result assembly for the events/online backends: the same
-    metrics schema and the same extras (work census, telemetry export)
-    regardless of whether the workload was replayed offline or streamed in
-    incrementally. (The JAX package also adds per-tier waits and a churn
-    work census for trace schemas, which the traces slice of the port
-    brings.)"""
+    metrics schema and the same extras (tier breakdowns, work census,
+    telemetry export) regardless of whether the trace was replayed offline
+    or streamed in incrementally."""
     m = rt.metrics
     if scenario.workload.m_tasks is not None:
         # the realized arrival process decides the count here
         backend_options.setdefault("ignored", []).append(
             "workload.m_tasks")
     extras = {}
+    if isinstance(wl, TraceSchema) and (wl.n_tiers > 1
+                                        or wl.constrained):
+        # the per-tier breakdown trace experiments compare policies
+        # on; keys are strings so the result JSON round-trips
+        extras["wait_by_tier"] = {
+            str(tier): stats for tier, stats in m.wait_by_tier().items()
+        }
+        extras["tier_counts"] = {
+            str(t): c for t, c in wl.tier_counts().items()}
     wl_dag = getattr(wl, "dag", None)
-    if wl_dag is not None and not wl_dag.empty:
-        # end-of-run work audit for DAG frontiers: everything admitted is
-        # completed, and the waste the churn burned is on record
+    if (isinstance(wl, TraceSchema) and (wl.preempted
+                                         or wl.ends_evicted.any())) \
+            or (wl_dag is not None and not wl_dag.empty):
+        # end-of-run work audit for churn replays and DAG frontiers:
+        # everything admitted is completed, and the waste the churn
+        # burned is on record
         extras["work_census"] = {
             k: v for k, v in rt.work_census().items()
             if k in ("admitted", "completed", "wasted",
@@ -328,12 +355,25 @@ class BatchedBackend(Backend):
             return ("workload declares a task-dependency DAG; the fluid "
                     "model has no per-task identity to gate releases on "
                     "parent completions — run on the events backend")
-        # (the JAX package's checks on trace dependency edges, placement
-        # constraints and evictions read TraceRef workloads, which this
-        # slice of the port does not have)
         bad = _fault_nodes_in_range(scenario) or _trace_problem(scenario)
         if bad is not None:
             return bad
+        if scenario.workload.is_trace:
+            wl = scenario.workload.materialize(scenario.seed)
+            if isinstance(wl, TraceSchema) and wl.has_dag:
+                return ("trace carries dependency edges; the fluid model "
+                        "has no per-task identity to gate releases on "
+                        "parent completions — run on the events backend")
+            if isinstance(wl, TraceSchema) and wl.constrained:
+                return ("trace tasks carry placement constraints; the "
+                        "fluid model has no per-task node identity to "
+                        "enforce a feasibility mask — run on the events "
+                        "backend")
+            if isinstance(wl, TraceSchema) and wl.preempted:
+                return ("trace carries eviction (requeue) events; the "
+                        "fluid model has no per-task identity to preempt "
+                        "— run on the events backend, or parse with "
+                        "eviction_mode='end'")
         failures, joins, _ = resolve_fault_schedule(scenario)
         failed_at: dict[int, float] = {}
         for t, node in sorted(failures):
@@ -549,6 +589,17 @@ class BatchedBackend(Backend):
         fault_counts = tuple(
             len(evs) for evs in resolve_fault_schedule(scenarios[0]))
         extra_ignored = []
+        if scenarios[0].workload.is_trace:
+            wl = scenarios[0].workload.materialize(scenarios[0].seed)
+            if isinstance(wl, TraceSchema) and wl.n_tiers > 1:
+                # the fluid model has no task ordering, so tiers cannot
+                # affect it — flagged, not rejected
+                extra_ignored.append("workload trace priorities")
+            if isinstance(wl, TraceSchema) and wl.ends_evicted.any():
+                # end-mode eviction outcomes are per-task flags the fluid
+                # model cannot count — flagged, not rejected
+                extra_ignored.append(
+                    "workload trace eviction outcomes (ends_evicted)")
         obs = scenarios[0].obs
         if obs is not None:
             if obs.trace:

@@ -1105,9 +1105,8 @@ class ClusterRuntime:
         global id space. ``resizes`` are ``(time, node, fraction)`` capacity
         changes (machine_events UPDATE rows).
 
-        Trace workloads (the JAX package's ``repro.traces.TraceSchema``;
-        the traces slice of the port brings its own) additionally carry
-        priorities and constraints: same-instant arrivals are admitted best
+        Trace workloads (:class:`repro_torch.traces.TraceSchema`)
+        additionally carry priorities and constraints: same-instant arrivals are admitted best
         tier first (the event queue breaks timestamp ties by push order),
         and each constrained task gets its feasibility mask resolved here,
         once, against the cluster attribute table — a task no node can ever

@@ -23,15 +23,31 @@ the PyTorch port of ``repro.runtime.vector_backend``: the same float64
 arithmetic in the same order, with the JAX ``lax.scan`` over slots written as
 a Python loop over slots.
 
-Determinism. The engine's discrete branches (the owner ``searchsorted``, the
-trigger's ``imb > max(cross, floor)``) can flip on one bit, so every
-float64 sum whose order could change from run to run on the card goes
-through a hand-written kernel with a fixed order instead of an atomic
-scatter-add or ``torch.cumsum`` (both run-to-run nondeterministic on CUDA
-floats): the per-slot totals and the per-slot queue increments are the
-dispatch kernel's ``fill`` (a serial per-destination sum in task order), and
-the power prefix ``lam`` is the scan kernel. The remaining scatter-add sums
-whole counts, which float64 holds exactly in any order.
+Determinism, and the oracle's bits. The engine's discrete branches (the
+owner ``searchsorted``, the trigger's ``imb > max(cross, floor)``) can flip
+on one bit: on bursty traces many tasks sit within a few ulps of an
+interval edge, and a task sent to the neighbouring node changes every later
+queue until the next rebalance. So every float64 sum that feeds a branch is
+taken in ``simulate_scalar``'s own order, which also fixes it from run to
+run on the card (an atomic scatter-add or ``torch.cumsum`` on CUDA floats is
+neither):
+
+* the work prefix ``S`` and the power prefix ``lam`` are the scan kernel,
+  left to right like ``np.cumsum(x) - x``;
+* the per-slot totals are the dispatch kernel's ``fill`` (a serial
+  per-destination sum in task order, like ``np.add.at``), and a slot's
+  dispatch wave is added to the queue by the same kernel started from the
+  queue (``init=queue``), as ``np.add.at(queue, owner, works)`` adds it;
+* every row sum (``pw.sum()``, ``queue.sum()``, ``deficit.sum()``, the
+  excess) is numpy's own pairwise order, ``_np_sum``.
+
+Elementwise float64 arithmetic is exact IEEE on both devices, so the queue,
+the owners, the trigger and the moved volume equal ``simulate_scalar``'s bit
+for bit. With ``fifo_dispatch`` a response adds the queue and the wave's
+backlog in another order than the oracle (``(q + w1 + ...) + w`` against
+``(q + (w1 + ...)) + w``), within a few ulps: responses feed no branch. The
+remaining scatter-add sums whole counts, which float64 holds exactly in any
+order.
 """
 
 from __future__ import annotations
@@ -50,6 +66,118 @@ __all__ = ["VectorConfig", "BatchMetrics", "simulate_batch",
            "simulate_scalar", "sweep_seeds", "to_tensors"]
 
 _TINY = 1e-12
+# numpy's float64 sum of a contiguous row: pairwise_sum halves a run (the
+# cut rounded down to a multiple of 8) down to blocks of at most 128 and sums
+# a block in 8 interleaved accumulators. numpy 2.0 runs it over chunks of the
+# ufunc buffer (8192 elements) in turn, later versions over the whole row:
+# _np_chunk asks the installed numpy which
+_NP_BUFSIZE = 8192
+_NP_BLOCK = 128
+_NP_GROUPS = _NP_BLOCK // 8
+
+
+class _NpSumPlan:
+    """The fixed association tree of numpy's sum over n elements, as index
+    tensors: the blocks' elements (16 groups of 8, then up to 7 left over;
+    index n points at a zero, and adding 0.0 changes no bits), the pairwise
+    additions level by level, and the chunks' roots in order."""
+
+    def __init__(self, n: int, device, chunk: int):
+        blocks, adds = [], []
+
+        def tree(start, length):
+            if length <= _NP_BLOCK:
+                blocks.append((start, length))
+                return ("b", len(blocks) - 1, 0)
+            half = length // 2
+            half -= half % 8
+            left, right = tree(start, half), tree(start + half, length - half)
+            adds.append((left, right))
+            return ("a", len(adds) - 1, 1 + max(left[2], right[2]))
+
+        roots = [tree(s, min(chunk, n - s)) for s in range(0, n, chunk)]
+        nb = len(blocks)
+        groups = np.full((nb, _NP_GROUPS, 8), n, dtype=np.int64)
+        rest = np.full((nb, 7), n, dtype=np.int64)
+        for i, (start, length) in enumerate(blocks):
+            g = length // 8 if length >= 8 else 0
+            groups[i, :g] = start + np.arange(8 * g).reshape(g, 8)
+            rest[i, :length - 8 * g] = start + 8 * g + np.arange(
+                length - 8 * g)
+
+        def vid(node):
+            return node[1] if node[0] == "b" else nb + node[1]
+
+        levels: dict[int, list] = {}
+        for j, (left, right) in enumerate(adds):
+            h = 1 + max(left[2], right[2])
+            levels.setdefault(h, []).append((nb + j, vid(left), vid(right)))
+        as_t = dict(dtype=torch.int64, device=device)
+        self.size = nb + len(adds)
+        self.groups = torch.as_tensor(groups, **as_t)
+        self.rest = torch.as_tensor(rest, **as_t)
+        self.levels = [tuple(torch.as_tensor(col, **as_t)
+                             for col in zip(*levels[h]))
+                       for h in sorted(levels)]
+        self.roots = [vid(r) for r in roots]
+
+
+_NP_SUM_PLANS: dict[tuple, _NpSumPlan] = {}
+_NP_CHUNKS: dict[int, int] = {}
+
+
+def _np_chunk(n: int) -> int:
+    """The run length the installed numpy sums n elements in: its buffer
+    (numpy 2.0) or the whole row (later versions), read off ``np.sum`` of
+    probe rows whose bits tell the two apart."""
+    if n <= _NP_BUFSIZE:
+        return _NP_BUFSIZE
+    if n not in _NP_CHUNKS:
+        probe = np.random.default_rng(n).uniform(0.0, 1e3, size=(16, n))
+        want = [np.sum(row) for row in probe]
+        _NP_CHUNKS[n] = next(
+            (c for c in (_NP_BUFSIZE, n)
+             if np.array_equal(_np_sum_with(torch.from_numpy(probe),
+                                            _NpSumPlan(n, "cpu", c)).numpy(),
+                               want)),
+            _NP_BUFSIZE)
+    return _NP_CHUNKS[n]
+
+
+def _np_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis with numpy's association, bit for bit what
+    ``np.sum`` gives each contiguous float64 row (``simulate_scalar``'s
+    sums); on any device."""
+    n = x.shape[-1]
+    key = (n, x.device)
+    if key not in _NP_SUM_PLANS:
+        _NP_SUM_PLANS[key] = _NpSumPlan(n, x.device, _np_chunk(n))
+    return _np_sum_with(x, _NP_SUM_PLANS[key])
+
+
+def _np_sum_with(x: torch.Tensor, plan: _NpSumPlan) -> torch.Tensor:
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    out = torch.zeros(lead, dtype=x.dtype, device=x.device)
+    if n == 0:
+        return out
+    xp = torch.cat([x, x.new_zeros(lead + (1,))], dim=-1)
+    g = xp[..., plan.groups]                         # (..., blocks, 16, 8)
+    r = g[..., 0, :]
+    for k in range(1, _NP_GROUPS):
+        r = r + g[..., k, :]
+    block = (((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3]))
+             + ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7])))
+    rest = xp[..., plan.rest]                        # (..., blocks, 7)
+    for k in range(7):
+        block = block + rest[..., k]
+    vals = torch.empty(lead + (plan.size,), dtype=x.dtype, device=x.device)
+    vals[..., :block.shape[-1]] = block
+    for ids, left, right in plan.levels:
+        vals[..., ids] = vals[..., left] + vals[..., right]
+    for root in plan.roots:
+        out = out + vals[..., root]
+    return out
 
 
 @dataclass(frozen=True)
@@ -259,8 +387,10 @@ def to_tensors(slot, works, powers, power_scale, *, device):
 
 
 def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
-    """The batched engine on tensors of one device; operation order as in
-    the JAX package's ``_simulate_batch_jax``. Returns a tuple of tensors:
+    """The batched engine on tensors of one device: the JAX package's
+    ``_simulate_batch_jax``, with every branch-feeding sum in
+    ``simulate_scalar``'s order (see the module docstring). Returns a tuple
+    of tensors:
     ``(mean, p99, makespan, fires, moved, count)`` and, with ``cfg.probe``,
     ``(probe_queue, probe_imbalance, probe_crossover, probe_fires)``."""
     B, M = works.shape
@@ -273,7 +403,7 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
     zero = torch.zeros((), **f64)
 
     # one batched exclusive work scan over all tasks — the paper's core
-    # operator, computed by the scan kernel
+    # operator, computed by the scan kernel (left to right, as np.cumsum)
     S = ops.prefix_scan(works)
     valid = slot < T
     # the padding sentinel slot == T lands in an extra column, cut off (the
@@ -300,13 +430,13 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
     for t in range(T):
         mask = slot == t                                  # (B, M)
         pw = powers * scale[t]                            # (B, n)
-        pi = pw.sum(dim=1, keepdim=True)
+        pi = _np_sum(pw)[:, None]
         # -- arrivals
         tot_t = tot[:, t:t + 1]                           # (B, 1)
         has = tot_t > 0.0
-        fair = pw / pi * (queue.sum(dim=1, keepdim=True) + tot_t)
+        fair = pw / pi * (_np_sum(queue)[:, None] + tot_t)
         deficit = torch.clamp_min(fair - queue, 0.0)
-        ds = deficit.sum(dim=1, keepdim=True)
+        ds = _np_sum(deficit)[:, None]
         use_def = ds > 0.0
         src = torch.where(use_def, deficit, pw)
         norm = torch.where(use_def, ds, pi)
@@ -315,24 +445,24 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
                            / torch.where(has, tot_t, 1.0), 0.0, 1.0 - _TINY)
         owner = torch.searchsorted(lam, frac, right=True) - 1
         owner = torch.clamp(owner, 0, n - 1)
-        q_own = torch.gather(queue, 1, owner)
         pw_own = torch.gather(pw, 1, owner)
-        # dispatch kernel: exclusive same-owner work prefix of this slot's
-        # dispatch wave, all B scenarios in one launch; its fill is the
-        # slot's per-node work increment
-        ahead, fill = ops.dispatch_work_prefix(
+        # dispatch kernel, all B scenarios in one launch: this slot's wave
+        # added to the queues in task order (started from the queue, as
+        # np.add.at adds), and each task's queue plus the same-owner work
+        # ahead of it in the wave
+        ahead, new_queue = ops.dispatch_work_prefix(
             torch.where(mask, owner, -1).to(torch.int32),
-            torch.where(mask, works, zero), n)
-        backlog_ahead = ahead if cfg.fifo_dispatch else 0.0
+            torch.where(mask, works, zero), n, init=queue)
+        before = (ahead if cfg.fifo_dispatch
+                  else torch.gather(queue, 1, owner))
         resp = resp + torch.where(
-            mask, (q_own + backlog_ahead + works)
-            / torch.clamp_min(pw_own, _TINY), zero)
-        queue = queue + fill
+            mask, (before + works) / torch.clamp_min(pw_own, _TINY), zero)
+        queue = new_queue
         seen = seen + cnt[:, t]
         # -- crossover trigger (and/or the probe's trigger signal — same
         # formulas as simulate_scalar, see the note there)
         if cfg.rebalance or cfg.probe:
-            w = queue.sum(dim=1, keepdim=True)
+            w = _np_sum(queue)[:, None]
             t_bal = torch.where(pi > 0.0, w / torch.clamp_min(pi, _TINY),
                                 zero)
             ratio = torch.where(pw > 0.0, queue / torch.clamp_min(pw, _TINY),
@@ -340,8 +470,7 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
             imb = (ratio.amax(dim=1, keepdim=True)
                    / torch.clamp_min(t_bal, _TINY) - 1.0)
             fair_q = pw / torch.clamp_min(pi, _TINY) * w
-            excess = torch.clamp_min(queue - fair_q, 0.0).sum(
-                dim=1, keepdim=True)
+            excess = _np_sum(torch.clamp_min(queue - fair_q, 0.0))[:, None]
             overhead = (cfg.scan_steps * (cfg.p + cfg.q)
                         + seen[:, None] / n * cfg.t_task
                         + excess * cfg.packets_per_unit
@@ -356,7 +485,7 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
             else:
                 fire = torch.zeros_like(fire)
         # -- service (backlog sampled before draining, as in simulate_scalar)
-        backlog.append(queue.sum(dim=1))
+        backlog.append(_np_sum(queue))
         if cfg.probe:
             for series, value in zip(probes, (queue, imb[:, 0], cross[:, 0],
                                               fire[:, 0])):

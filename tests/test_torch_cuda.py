@@ -132,6 +132,33 @@ def test_dispatch_kernel_is_the_ordered_loop(cuda, case):
     assert torch.equal(got_f.cpu(), want_f)
 
 
+@pytest.mark.parametrize("rows,n", [(1, 1), (3, 7), (5, 2049), (7, 130),
+                                    (16, 12500), (2, 1_000_003)])
+def test_prefix_scan_kernel_is_the_sequential_scan(cuda, rows, n):
+    """Bit for bit the plain version on the CPU, np.cumsum(x) - x: the
+    engine's owner choice reads these bits."""
+    g = torch.Generator().manual_seed(rows + n)
+    x = torch.rand(rows, n, dtype=torch.float64, generator=g) * 11
+    assert torch.equal(ops.prefix_scan(x.to(cuda)).cpu(),
+                       ref.prefix_scan_ref(x))
+
+
+@pytest.mark.parametrize("r,t,e", [(3, 2000, 129), (2, 200_000, 12_500),
+                                   (2, 40_000, 200), (3, 33_000, 1)])
+def test_dispatch_kernel_from_init_is_the_ordered_loop(cuda, r, t, e):
+    """With ``init``, prefix and fill bit for bit the plain version on the
+    CPU, the ordered loop started from init (np.add.at into the queues)."""
+    g = torch.Generator().manual_seed(r * t + e)
+    idx = torch.randint(-1, e, (r, t), generator=g, dtype=torch.int32)
+    w = torch.rand(r, t, generator=g, dtype=torch.float64) * 11
+    init = torch.rand(r, e, generator=g, dtype=torch.float64) * 500
+    got_p, got_f = ops.dispatch_work_prefix(idx.to(cuda), w.to(cuda), e,
+                                            init=init.to(cuda))
+    want_p, want_f = ref.dispatch_work_prefix_ref(idx, w, e, init)
+    assert torch.equal(got_p.cpu(), want_p)
+    assert torch.equal(got_f.cpu(), want_f)
+
+
 def test_engine_on_card_matches_cpu_and_repeats_bit_for_bit(cuda):
     powers = np.random.default_rng(0).integers(1, 11, size=64).astype(float)
     cfg = VectorConfig(n_nodes=64, n_slots=80, fifo_dispatch=True,

@@ -340,8 +340,10 @@ def test_what_waits_for_later_slices_says_so():
     with pytest.raises(NotImplementedError, match="serve slice"):
         rt.open_session()
     # one class for every constraint diagnostic, a ValueError as in the
-    # JAX package (the traces slice re-exports it)
+    # JAX package: the traces package re-exports the engine's
+    from repro_torch import traces
     assert issubclass(InfeasibleTaskError, ValueError)
+    assert traces.InfeasibleTaskError is InfeasibleTaskError
     with pytest.raises(ValueError, match="node attr"):
         ClusterRuntime(POWERS, "psts", node_attrs={"rack": (0, 1)})
 
@@ -457,11 +459,28 @@ def test_federation_like_spec_is_refused_everywhere():
         assert "'federated' backend" in want
 
 
-def test_dag_workload_waits_for_the_graphs_slice():
-    sc = _scenario(lab, workload=lab.WorkloadSpec(dag={"kind": "chain"}))
+@pytest.mark.parametrize("dag", [
+    {"kind": "chain"},
+    {"kind": "random", "p": 0.3},
+    {"kind": "chain", "nonsense": 1},
+    {"edges": [[1, 0], [2, 1]]},
+    {"edges": [[5000, 0]]},
+], ids=["chain", "random", "bad-param", "edges", "edges-out-of-range"])
+def test_dag_workload_waits_for_the_graphs_slice(dag):
+    """The realized DAG's eligibility on every backend equals the JAX
+    package's: events takes a realizable one and gives the generator's
+    diagnostic for the rest; batched and legacy refuse it."""
+    jsc, sc = _both(workload=jlab.WorkloadSpec(
+        process="poisson", horizon=60.0, work_mean=6.0,
+        params={"rate": 6.0}, dag=dag))
+    for name in ("events", "batched", "legacy"):
+        want = jlab.get_backend(name).eligible(jsc)
+        assert lab.get_backend(name).eligible(sc) == want, name
     reason = lab.get_backend("events").eligible(sc)
-    assert reason.startswith("workload dag unrealizable")
-    assert "graphs slice" in reason
+    if "nonsense" in dag or [5000, 0] in dag.get("edges", []):
+        assert reason.startswith("workload dag unrealizable")
+    else:
+        assert reason is None
 
 
 def test_trace_path_replay_matches_reference():

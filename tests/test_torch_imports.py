@@ -77,3 +77,18 @@ def test_event_engine_modules_import_without_jax_or_repro(report):
         assert f"repro_torch.{sub}" in report["modules"]
         for mod in mods:
             assert f"repro_torch.{sub}.{mod}" in report["modules"]
+
+
+def test_trace_graph_federation_modules_import_without_jax_or_repro(report):
+    """The trace parsers, the DAG generators and the federation layer."""
+    assert report["foreign"] == []
+    assert report["libs"] == 0
+    for sub, mods in {
+            "graphs": ("dag",),
+            "traces": ("io", "schema", "normalized", "google", "azure",
+                       "machines", "synth"),
+            "federation": ("specs", "balancer", "runtime", "backend")
+    }.items():
+        assert f"repro_torch.{sub}" in report["modules"]
+        for mod in mods:
+            assert f"repro_torch.{sub}.{mod}" in report["modules"]

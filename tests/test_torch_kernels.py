@@ -120,6 +120,61 @@ def test_dispatch_work_prefix_ref_any_width_matches_loop(r, t, e):
     np.testing.assert_allclose(got_fill.numpy(), fill, rtol=RTOL, atol=0)
 
 
+def _ordered_loop_from(e_idx, w, e, init):
+    """simulate_scalar's loop with each destination's sum started at
+    ``init`` (np.add.at's order when the sums are the queues), in Python
+    floats (IEEE float64)."""
+    r, t = e_idx.shape
+    pos = np.zeros((r, t))
+    fill = np.zeros((r, e))
+    for i in range(r):
+        acc = init[i].tolist()
+        out = pos[i].tolist()
+        for j, (d, x) in enumerate(zip(e_idx[i].tolist(), w[i].tolist())):
+            if 0 <= d < e:
+                out[j] = acc[d]
+                acc[d] += x
+        pos[i] = out
+        fill[i] = acc
+    return pos, fill
+
+
+@pytest.mark.parametrize("r,t,e,runs", [(3, 2000, 129, False),
+                                        (2, 5000, 12500, False),
+                                        (4, 3000, 1, False),
+                                        (2, 4000, 16, True), (1, 1, 7, False)])
+@pytest.mark.parametrize("with_init", [False, True])
+def test_dispatch_work_prefix_ref_is_the_ordered_loop(r, t, e, runs,
+                                                      with_init):
+    """Bit for bit (not within a tolerance) the loop the engine's branches
+    are held to: each destination's sum left to right, from 0 or from
+    ``init``; ``runs`` sorts the destinations into long runs, as the
+    per-slot totals call has them."""
+    rng = np.random.default_rng(e + t + with_init)
+    e_idx = rng.integers(-1, e, size=(r, t))
+    if runs:
+        e_idx = np.sort(e_idx, axis=1)
+    e_idx = e_idx.astype(np.int32)
+    w = rng.uniform(0.1, 11.0, size=(r, t))
+    init = (rng.uniform(0.0, 500.0, size=(r, e)) if with_init
+            else np.zeros((r, e)))
+    pos, fill = _ordered_loop_from(e_idx, w, e, init)
+    got_pos, got_fill = ops.dispatch_work_prefix(
+        torch.from_numpy(e_idx), torch.from_numpy(w), e,
+        init=torch.from_numpy(init) if with_init else None)
+    np.testing.assert_array_equal(got_pos.numpy(), pos)
+    np.testing.assert_array_equal(got_fill.numpy(), fill)
+
+
+@pytest.mark.parametrize("rows,n", [(1, 1), (3, 7), (2, 2049), (4, 12500)])
+def test_prefix_scan_ref_is_numpys_cumsum(rows, n):
+    """The plain scan is np.cumsum(x) - x bit for bit: the oracle's
+    ``S`` and ``lam``."""
+    x = np.random.default_rng(n).uniform(0.0, 11.0, size=(rows, n))
+    got = ops.prefix_scan(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.cumsum(x, axis=-1) - x)
+
+
 def test_dispatch_work_prefix_ref_edges():
     # all tokens without a destination, out-of-range ones, and no tokens
     idx = torch.tensor([[-1, -1, -1], [5, 2, -7]], dtype=torch.int32)

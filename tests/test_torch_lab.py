@@ -155,11 +155,15 @@ def test_unported_parts_say_so():
     # the event engine (the default) and the paper simulator run ...
     assert lab.run(sc).backend == "events"
     assert lab.run(sc, backend="legacy").backend == "legacy"
-    # ... the federated and online backends still wait for later slices
-    for name in ("federated", "online"):
-        with pytest.raises(lab.BackendError, match="not ported"):
-            lab.run(sc, backend=name)
-    assert sorted(lab.BACKENDS) == ["batched", "events", "legacy"]
+    # ... only the online backend still waits for a later slice; the
+    # federated one registers on first use and refuses a single scenario
+    # with the JAX package's reason
+    with pytest.raises(lab.BackendError, match="not ported"):
+        lab.run(sc, backend="online")
+    with pytest.raises(lab.BackendError, match="runs Federation specs"):
+        lab.run(sc, backend="federated")
+    assert sorted(lab.BACKENDS) == ["batched", "events", "federated",
+                                    "legacy"]
     # device= reaches the batched backend alone: a small sweep runs on the
     # host engine, a uniform one of 8 seeds on the batched backend, and an
     # explicit host backend refuses the option as the JAX package's does
@@ -170,13 +174,19 @@ def test_unported_parts_say_so():
     for name in ("events", "legacy"):
         with pytest.raises(TypeError, match="takes no options"):
             lab.run(sc, backend=name, device="cpu")
-    with pytest.raises(NotImplementedError, match="traces slice"):
-        lab.TraceRef(path="x.csv")
-    with pytest.raises(NotImplementedError, match="traces slice"):
-        lab.ClusterSpec(n_nodes=2, attrs={"rack": (0, 1)})
+    # trace references, node attribute tables and DAG workloads work now,
+    # with the JAX package's validation
+    with pytest.raises(ValueError, match="unknown trace format"):
+        lab.TraceRef(path="x.csv", format="nope")
+    ref = lab.TraceRef(path=str(TRACE))
+    assert ref.load(0).m == jlab.TraceRef(path=str(TRACE)).load(0).m == 8
+    assert lab.ClusterSpec(n_nodes=2, attrs={"rack": (0, 1)}
+                           ).resolve_attrs() == {"rack": (0.0, 1.0)}
+    with pytest.raises(ValueError, match="2 nodes"):
+        lab.ClusterSpec(n_nodes=2, attrs={"rack": (0, 1, 2)})
     dag = _scenario(lab, workload=lab.WorkloadSpec(dag={"kind": "chain"}))
-    with pytest.raises(NotImplementedError, match="graphs slice"):
-        dag.workload.materialize(0)
+    wl = dag.workload.materialize(0)
+    assert wl.has_dag and wl.dag.m == wl.m
 
 
 def test_batched_defaults_are_psts_policy_defaults():

@@ -210,3 +210,71 @@ def test_no_gpu_and_no_device_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulate_batch(np.zeros((1, 1), np.int32), np.ones((1, 1)),
                        POWERS[:4], cfg)
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 127, 128, 129, 300, 1000,
+                               8191, 8192, 8193, 12500, 20000])
+def test_np_sum_is_numpys_order(n):
+    """``_np_sum`` gives each row numpy's own float64 sum, bit for bit (the
+    buffer chunks, the pairwise halving, the 8 accumulators of a block)."""
+    from repro_torch.runtime.vector_backend import _np_sum
+    x = np.random.default_rng(n).uniform(0.0, 9.0, size=(3, n)) * 1e3
+    got = _np_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(
+        got, [np.sum(np.ascontiguousarray(row)) for row in x])
+
+
+def _scaled_trace_batch(cfg, seeds, scale):
+    from repro_torch.traces import load_trace
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "benchmarks" / "data"
+            / "google_excerpt_10k.csv.gz")
+    wls = [load_trace(str(path), format="google",
+                      params={"eviction_mode": "end"}, scale=scale,
+                      seed=s, horizon=cfg.n_slots * cfg.dt)
+           for s in seeds]
+    return batch_slots(wls, cfg.dt, cfg.n_slots)
+
+
+@pytest.mark.parametrize("case", ["poisson", "bursty-outage",
+                                  "trace-fifo", "trace"])
+def test_engine_state_is_the_oracles_bit_for_bit(case):
+    """The queues, the trigger's imbalance, crossover and fires, and the
+    moved volume equal simulate_scalar's bit for bit, slot by slot, as the
+    card's kernels must reproduce them: a task within an ulp of an
+    interval edge would otherwise take the neighbouring node. A bursty,
+    rate-scaled trace fires the trigger on most slots."""
+    powers = POWERS
+    scale = None
+    if case.startswith("trace"):
+        cfg = VectorConfig(n_nodes=16, n_slots=150, fifo_dispatch=case ==
+                           "trace-fifo", probe=True, floor=0.1)
+        slot, works, _ = _scaled_trace_batch(cfg, (0, 1), 0.3)
+    else:
+        cfg = VectorConfig(n_nodes=16, n_slots=120, fifo_dispatch=True,
+                           probe=True, floor=0.05)
+        process, kw = (("poisson", dict(rate=12.0, work_mean=6.0))
+                       if case == "poisson" else
+                       ("bursty", dict(rate_lo=2.0, rate_hi=40.0,
+                                       sojourn_lo=10.0, sojourn_hi=4.0,
+                                       work_mean=6.0)))
+        slot, works, _ = _batch(process, 3, cfg, **kw)
+        if case == "bursty-outage":
+            scale = np.ones((cfg.n_slots, 16))
+            scale[20:60, 3] = 0.0
+            scale[40:, 7] = 0.5
+    got = simulate_batch(slot, works, powers, cfg, power_scale=scale,
+                         device="cpu")
+    fires = 0
+    for i in range(works.shape[0]):
+        sm = simulate_scalar(slot[i], works[i], powers, cfg,
+                             power_scale=scale)
+        for k in PROBES + ["moved_units", "trigger_fires", "makespan",
+                           "completed"]:
+            np.testing.assert_array_equal(getattr(got, k)[i], sm[k],
+                                          err_msg=f"seed {i}, {k}")
+        for k in ("mean_response", "p99_response"):
+            np.testing.assert_allclose(getattr(got, k)[i], sm[k],
+                                       rtol=1e-12, err_msg=f"seed {i}, {k}")
+        fires += sm["trigger_fires"]
+    assert fires > 0
