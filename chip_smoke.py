@@ -126,6 +126,30 @@ Phases, each fatal on failure:
     d. dag-256, host: phase 11's scenario cut to 256 nodes with a random
        DAG: ``batched`` refuses it with the JAX package's reason, and on
        ``events`` every task completes and the work census closes.
+13. the lab CLI and the scheduler service — the eighth slice's paths,
+    driven in-process through ``repro_torch.lab.cli.main`` (the entry point
+    of ``python -m repro_torch.lab``) so the launch counters can be read:
+    a. ``sweep`` of phase 3's scenario file over seeds 0-7, no
+       ``--device``: it must run on ``batched`` on the card, launch the
+       scan and the dispatch prefix 201 times each (counters zeroed just
+       before, read just after), and write metrics equal to the bit to a
+       direct ``lab.sweep`` of the same seeds. The CLI's wall time and its
+       engine call (the batched backend's ``simulate_batch``, wrapped) are
+       printed.
+    b. ``run --backend online`` on phase 11's scenario (seed 0): the
+       scheduler service streams the tasks in one arrival batch per
+       micro-step; the metrics it writes equal phase 11's events run byte
+       for byte. Seconds per run, us per task, decisions.
+    c. ``serve`` on phase 11's scenario cut to horizon 10, plus a JSONL feed
+       of 100 tasks, with ``--decisions-out``, ``--metrics-out``,
+       ``--metrics-every 5`` and ``--metrics-port 0``: every task
+       completes (the scenario's and the feed's), every decision line
+       parses and their count is the sum of the counts in ``--out``, the
+       metrics stream's completion counter is monotone and ends at the
+       completed count, and a scrape of the live endpoint parses.
+    d. ``template --preset geo-federation`` and ``planet-federation``, then
+       ``run`` on each: on ``federated``, every task completes, and WAN
+       migrations happen.
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -134,12 +158,15 @@ JSON result. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
 import sys
 import time
+import urllib.request
 import warnings
 from pathlib import Path
 
@@ -149,6 +176,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import lab  # noqa: E402
+from repro_torch import obs as obs_mod  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
@@ -156,6 +184,8 @@ from repro_torch.lab.backends import (  # noqa: E402
     assemble_events_result,
     build_events_runtime,
 )
+from repro_torch.lab import backends as lab_backends  # noqa: E402
+from repro_torch.lab import cli as lab_cli  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -233,6 +263,11 @@ GEO_NODES = 256
 GEO_HORIZON = 50.0
 GEO_LOADS = (1.2, 0.3, 0.3, 0.3)
 DAG_NODES = 256
+CLI_SEEDS = 8           # the batch threshold: the CLI sweep goes to batched
+SERVE_HORIZON = 10.0    # 13c: phase 11's scenario cut to this horizon
+SERVE_FEED = 100        # 13c: tasks fed over JSONL on top of it
+# 13: files the CLI reads and writes (build/ is not part of the repo)
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
 # the JAX package's batched refusal of a DAG workload, word for word
 DAG_REASON = ("workload declares a task-dependency DAG; the fluid model has "
               "no per-task identity to gate releases on parent completions "
@@ -1012,7 +1047,8 @@ def phase_serve_vs_plain(dev):
     unless a prompt's top-k order differs at a near tie (a gap below 1e-4
     between two of its top-(k+1) router logits), which float rounding may
     decide either way: such a prompt is reported and left out of (b)'s
-    last-token check."""
+    last-token check, and of (b) and (c) in the layers after the tie (its
+    hidden states there come from other experts on the two devices)."""
     cfg = dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32",
                               kv_cache_dtype="float32")
     card = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
@@ -1059,9 +1095,14 @@ def phase_serve_vs_plain(dev):
             if not torch.equal(getattr(rc, f).cpu(), getattr(plain, f)):
                 fail(f"layer {layer}: card routing {f} differs from the "
                      f"plain dispatch on the same router logits")
-        # (b) router logits
+        # (b) router logits, of the prompts routed alike so far
+        live = [gi for gi in range(len(lens)) if gi not in diverged]
+        if not live:
+            fail("every prompt diverged at a near tie; nothing left to "
+                 "compare")
         lc = lc.cpu()
-        r_err = (lc - lh).abs().max().item() / lh.abs().max().item()
+        r_err = ((lc[live] - lh[live]).abs().max().item()
+                 / lh[live].abs().max().item())
         if not r_err <= LOGIT_TOL:
             fail(f"layer {layer}: router logits differ by {r_err:.3e} x max")
         # (c) routing across devices
@@ -1071,7 +1112,7 @@ def phase_serve_vs_plain(dev):
         gaps = (top.values[..., :-1] - top.values[..., 1:]).min(-1).values
         flipped = (torch.topk(lc, k, dim=-1).indices
                    != top.indices[..., :k]).any(-1)
-        for gi in range(len(lens)):
+        for gi in live:
             if same[gi]:
                 continue
             if not flipped[gi].any():
@@ -1087,8 +1128,8 @@ def phase_serve_vs_plain(dev):
                 f"logits check")
         log(f"[serve-vs-plain] layer {layer}: routing equal to the plain "
             f"dispatch on the card's logits; router logits within "
-            f"{r_err:.2e} x max; prompts routed alike on both devices: "
-            f"{sum(same)}/{len(lens)}")
+            f"{r_err:.2e} x max on {len(live)} prompts; prompts routed "
+            f"alike on both devices: {sum(same)}/{len(lens)}")
     keep_rows = [i for i in range(len(lens)) if i not in diverged]
     if not keep_rows:
         fail("every prompt diverged at a near tie; nothing left to compare")
@@ -1461,6 +1502,7 @@ def phase_events(dev, smi: str):
          for k in ("crossover", "speedup", "overhead")}
     log(f"[events] legacy seed 0: crossover {x['crossover']!r}, speedup "
         f"{x['speedup']!r}, overhead {x['overhead']!r}; {leg_s!r} s per run")
+    return ev[0]
 
 
 def trace_scenario() -> lab.Scenario:
@@ -1480,7 +1522,6 @@ def phase_trace_sweep(dev, smi: str):
     """12a: a seed sweep over a rate-scaled real trace on the card. The
     engine call inside the sweep is timed (and its inputs kept for the
     checks) by wrapping the batched backend's ``simulate_batch``."""
-    from repro_torch.lab import backends as lab_backends
     base = trace_scenario()
     calls = []
     engine = lab_backends.simulate_batch
@@ -1761,6 +1802,185 @@ def phase_dag(smi: str):
         f"engine; {smi})")
 
 
+def cli(*argv) -> None:
+    """``python -m repro_torch.lab *argv``, in this process."""
+    rc = lab_cli.main([str(a) for a in argv])
+    if rc != 0:
+        fail(f"cli {' '.join(map(str, argv))}: exit code {rc}")
+
+
+def phase_cli_sweep(smi: str):
+    """13a: the CLI's sweep on the card, against a direct lab.sweep."""
+    sc_file = CLI_DIR / "clusterdata-12.5k.json"
+    sc_file.write_text(scenario().to_json())
+    out = CLI_DIR / "sweep.json"
+    calls = []
+    engine = lab_backends.simulate_batch
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm = engine(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t0)
+        return bm
+
+    ops.reset_launch_counts()
+    lab_backends.simulate_batch = timed
+    try:
+        t0 = time.perf_counter()
+        cli("sweep", sc_file, "--grid", f"seed=0:{CLI_SEEDS}", "--out", out)
+        wall = time.perf_counter() - t0
+    finally:
+        lab_backends.simulate_batch = engine
+    launches = ops.launch_counts()
+    T = int(round(scenario().workload.horizon))
+    want = {"prefix_scan": 1 + T, "dispatch_work_prefix": 1 + T,
+            "dispatch_positions": 0, "flash_attention": 0,
+            "flash_attention_tc": 0, "mamba_scan": 0}
+    if launches != want:
+        fail(f"cli sweep: launch counts {launches}, expected {want}")
+    got = json.loads(out.read_text())
+    if [r["backend"] for r in got] != ["batched"] * CLI_SEEDS:
+        fail(f"cli sweep: ran on {[r['backend'] for r in got]}")
+    if len(calls) != 1:
+        fail(f"cli sweep: {len(calls)} engine calls, expected one")
+    t0 = time.perf_counter()
+    direct = lab.sweep(base=scenario(), grid={"seed": range(CLI_SEEDS)})
+    direct_s = time.perf_counter() - t0
+    want_json = json.dumps([r.to_dict() for r in direct], indent=2,
+                           sort_keys=True, allow_nan=False)
+    if json.dumps(got, indent=2, sort_keys=True) != want_json:
+        fail("cli sweep: the results differ from a direct lab.sweep")
+    tasks = sum(r["metrics"]["completed"] for r in got)
+    log(f"[cli] sweep of {CLI_SEEDS} seeds x {N_NODES} nodes on batched: "
+        f"{tasks} tasks, every metric equal to the bit to a direct lab.sweep "
+        f"({direct_s!r} s); CLI wall {wall!r} s, of it the engine call "
+        f"{calls[0]!r} s; launches {launches} ({smi})")
+    return launches
+
+
+def phase_cli_online(ev0, smi: str):
+    """13b: run --backend online on phase 11's scenario, seed 0."""
+    sc_file = CLI_DIR / "events-1024.json"
+    sc_file.write_text(events_scenario().to_json())
+    out = CLI_DIR / "online.json"
+    t0 = time.perf_counter()
+    cli("run", sc_file, "--backend", "online", "--out", out)
+    run_s = time.perf_counter() - t0
+    [got] = json.loads(out.read_text())
+    if got["backend"] != "online":
+        fail(f"cli online: ran on {got['backend']}")
+    if json.dumps(got["metrics"], sort_keys=True) != json.dumps(
+            ev0.to_dict()["metrics"], sort_keys=True):
+        fail("cli online: the metrics differ from phase 11's events run")
+    opts = got["backend_options"]
+    tasks = got["metrics"]["arrived"]
+    log(f"[cli] run --backend online, {EV_NODES} nodes, seed 0: {tasks} "
+        f"tasks in {opts['micro_steps']} micro-steps, metrics "
+        f"byte-identical to events; {run_s!r} s per run, "
+        f"{run_s / tasks * 1e6!r} us per task (host service); decisions "
+        f"{opts['decisions']} = {sum(opts['decisions'].values())} ({smi})")
+
+
+def phase_cli_serve(smi: str):
+    """13c: serve with a feed, the decision and metrics streams, and a
+    scrape of the live endpoint."""
+    sc = events_scenario().replace(name="serve-1024").updated(
+        {"workload.horizon": SERVE_HORIZON})
+    sc_file = CLI_DIR / "serve-1024.json"
+    sc_file.write_text(sc.to_json())
+    rng = np.random.default_rng(0)
+    feed = CLI_DIR / "feed.jsonl"
+    times = np.sort(rng.uniform(0.0, SERVE_HORIZON, SERVE_FEED))
+    feed.write_text("".join(
+        json.dumps({"t": float(t), "work": float(w), "packets": 1.0}) + "\n"
+        for t, w in zip(times, rng.exponential(EV_WORK_MEAN, SERVE_FEED))))
+    dec, mx, out = (CLI_DIR / n for n in ("decisions.jsonl",
+                                          "metrics.jsonl", "serve.json"))
+    # one scrape of the endpoint while the service still runs: taken as
+    # the CLI closes it, after the run's last event
+    scrapes = []
+    server_cls = obs_mod.MetricsHTTPServer
+
+    class Scraped(server_cls):
+        def close(self):
+            scrapes.append(urllib.request.urlopen(self.url).read().decode())
+            super().close()
+
+    obs_mod.MetricsHTTPServer = Scraped
+    try:
+        t0 = time.perf_counter()
+        cli("serve", sc_file, "--feed", feed, "--decisions-out", dec,
+            "--metrics-out", mx, "--metrics-every", "5", "--metrics-port",
+            "0", "--out", out)
+        serve_s = time.perf_counter() - t0
+    finally:
+        obs_mod.MetricsHTTPServer = server_cls
+    payload = json.loads(out.read_text())
+    m = payload["metrics"]
+    n_sc = sc.workload.materialize(sc.seed).m
+    if not m["completed"] == m["arrived"] == n_sc + SERVE_FEED:
+        fail(f"cli serve: completed {m['completed']}, arrived "
+             f"{m['arrived']}, expected {n_sc} + {SERVE_FEED}")
+    lines = dec.read_text().splitlines()
+    kinds = [json.loads(ln)["kind"] for ln in lines]
+    if len(kinds) != sum(payload["decisions"].values()):
+        fail(f"cli serve: {len(kinds)} decision lines, counts "
+             f"{payload['decisions']}")
+    rows = [json.loads(ln) for ln in mx.read_text().splitlines()]
+    done = [r["metrics"]["sched_tasks_completed_total"]["samples"][""]
+            for r in rows]
+    if not (len(rows) >= 2 and done == sorted(done)
+            and done[-1] == m["completed"]):
+        fail(f"cli serve: the metrics stream's completions {done}")
+    if len(scrapes) != 1:
+        fail(f"cli serve: {len(scrapes)} endpoint scrapes")
+    fams = parse_openmetrics(scrapes[0])
+    if fams["sched_completed"]["samples"][0][2] != m["completed"]:
+        fail("cli serve: the endpoint's scrape disagrees with the summary")
+    log(f"[cli] serve {EV_NODES} nodes, horizon {SERVE_HORIZON}: {n_sc} + "
+        f"{SERVE_FEED} fed tasks completed, {len(kinds)} decision lines "
+        f"({payload['decisions']}), {len(rows)} metrics samples, scrape of "
+        f"{len(fams)} families parses; {serve_s!r} s (host service; {smi})")
+
+
+def phase_cli_presets(smi: str):
+    """13d: the CLI's federation presets, written and run."""
+    for preset in ("geo-federation", "planet-federation"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli("template", "--preset", preset)
+        f = CLI_DIR / f"{preset}.json"
+        f.write_text(buf.getvalue())
+        out = CLI_DIR / f"{preset}.out.json"
+        t0 = time.perf_counter()
+        cli("run", f, "--out", out)
+        run_s = time.perf_counter() - t0
+        [r] = json.loads(out.read_text())
+        m, wan = r["metrics"], r["extras"]["wan"]
+        if r["backend"] != "federated":
+            fail(f"cli {preset}: ran on {r['backend']}")
+        if m["completed"] != m["arrived"]:
+            fail(f"cli {preset}: completed {m['completed']} of "
+                 f"{m['arrived']}")
+        if not wan["migrations"] > 0:
+            fail(f"cli {preset}: no WAN migrations ({wan})")
+        log(f"[cli] {preset}: federated ({r['backend_options']['model']}), "
+            f"{m['arrived']} tasks, mean response {m['mean_response']!r}, "
+            f"WAN {wan['migrations']} migrations; {run_s!r} s ({smi})")
+
+
+def phase_cli(ev0, smi: str):
+    """13: the lab CLI and the scheduler service."""
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    launches = phase_cli_sweep(smi)
+    phase_cli_online(ev0, smi)
+    phase_cli_serve(smi)
+    phase_cli_presets(smi)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -1821,7 +2041,7 @@ def main() -> int:
     phase_falcon_vs_plain(dev)
     phase_hybrid_vs_plain(dev)
     torch.cuda.empty_cache()
-    phase_events(dev, smi)
+    ev0 = phase_events(dev, smi)
     t12 = time.perf_counter()
     launches = phase_trace_sweep(dev, smi)
     for k in kernels[:2]:
@@ -1832,6 +2052,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dag(smi)
     log(f"[phase 12] {time.perf_counter() - t12:.1f}s")
+    t13 = time.perf_counter()
+    launches = phase_cli(ev0, smi)
+    for k in kernels[:2]:
+        k["cli_launches"] = launches[k["name"]]
+    log(f"[phase 13] {time.perf_counter() - t13:.1f}s")
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -20,8 +20,9 @@ kernels (``device="cpu"`` runs the plain PyTorch versions instead); small
 or non-uniform sweeps and per-task policies run on the event engine.
 Results carry the same canonical :class:`RunResult` schema and fingerprints
 as ``repro.lab``. Trace replays (``TraceRef``, node ``attrs``), DAG
-workloads and federations (``lab.Federation``, the ``federated`` backend)
-run as there; the ``online`` backend comes with a later slice of the port.
+workloads, federations (``lab.Federation``, the ``federated`` backend) and
+the scheduler service (the ``online`` backend) run as there. Scenario files
+round-trip through JSON and the ``python -m repro_torch.lab`` CLI.
 """
 
 from .api import BATCH_THRESHOLD, expand_grid, run, sweep

@@ -1,4 +1,4 @@
-"""``run`` / ``sweep``: the two entry points over every ported backend.
+"""``run`` / ``sweep``: the two entry points over every backend.
 
 ``run(scenario)`` executes one scenario on the discrete-event engine (or
 the backend named) after eligibility validation. ``sweep(...)`` executes
@@ -36,7 +36,7 @@ def run(scenario: Scenario, backend: str = "events",
         **backend_options) -> RunResult:
     """Execute one scenario (or ``repro_torch.federation.Federation``) on one
     backend; raises ``BackendError`` with the reason when the spec is not
-    expressible there (or the backend is not ported yet)."""
+    expressible there."""
     return get_backend(backend).run(scenario, **backend_options)
 
 

@@ -13,12 +13,12 @@
   arrival staggering; it alone derives crossover points (Tables 6-7). Host
   code, like ``events``.
 
-The fourth, ``federated``, registers from :mod:`repro_torch.federation`
-(imported lazily by :func:`get_backend`). The JAX package's ``online``
-backend is not ported yet: :func:`get_backend` raises a
-:class:`BackendError` that says so. Eligibility reasons and results are
-those of ``repro.lab.backends``, word for word, so the two packages can be
-held against each other.
+Two more register from other packages, imported lazily by
+:func:`get_backend`: ``federated`` from :mod:`repro_torch.federation`, and
+``online`` (the scheduler service, host code like ``events``) from
+:mod:`repro_torch.serve`. Eligibility reasons and results are those of
+``repro.lab.backends``, word for word, so the two packages can be held
+against each other.
 """
 
 from __future__ import annotations
@@ -51,7 +51,6 @@ __all__ = [
     "BatchedBackend",
     "LegacyBackend",
     "BATCHED_POLICIES",
-    "NOT_PORTED",
     "build_events_runtime",
     "assemble_events_result",
     "events_eligible",
@@ -64,9 +63,6 @@ BATCHED_POLICIES = ("arrival_only", "psts")
 # own fields so the batched/legacy param validation stays in lockstep with
 # what the events backend's constructor accepts
 _COST_KEYS = tuple(f.name for f in dataclasses.fields(PstsPolicy))
-
-# the JAX package's backends that later slices of the port bring
-NOT_PORTED = ("online",)
 
 
 class BackendError(ValueError):
@@ -100,15 +96,14 @@ def register_backend(cls: type[Backend]) -> type[Backend]:
 
 
 def get_backend(name: str) -> Backend:
-    if name in NOT_PORTED:
-        raise BackendError(
-            f"backend {name!r} is not ported to repro_torch yet (a later "
-            f"slice of the port brings it); run it with the JAX package's "
-            f"repro.lab, or use the 'events' or 'batched' backend")
     if name == "federated" and name not in BACKENDS:
         # registration lives in repro_torch.federation, which imports this
         # module; importing it eagerly at module top would be a cycle
         from ..federation import backend as _federation_backend  # noqa: F401
+    if name == "online" and name not in BACKENDS:
+        # the scheduler-as-a-service backend lives in repro_torch.serve;
+        # same cycle-avoidance as the federated hook above
+        from ..serve import backend as _serve_backend  # noqa: F401
     if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r}; have {sorted(BACKENDS)}")
     return BACKENDS[name]

@@ -31,10 +31,12 @@ engine and reports through the shared ``Metrics`` accumulator.
 Session lifecycle: the monolithic ``run()`` is a convenience over
 four explicit primitives — ``schedule_workload`` / ``submit`` feed work in,
 ``advance(until=..., max_events=...)`` moves the clock in bounded
-micro-steps, ``drain()`` runs the queue dry. The canonical driving verbs are
-``submit`` / ``withdraw`` / ``advance`` / ``drain``; ``inject`` and
-``step_until`` remain as deprecated spellings. ``open_session()`` (the
-session handle over these verbs) comes with the serve slice of the port.
+micro-steps, ``drain()`` runs the queue dry. ``open_session()`` returns a
+:class:`repro_torch.serve.session.Session` handle over exactly these verbs,
+and ``repro_torch.serve.SchedulerService`` streams tasks through it online.
+The canonical driving verbs are ``submit`` / ``withdraw`` / ``advance`` /
+``drain`` (shared with ``FederatedRuntime`` and ``SchedulerService``);
+``inject`` and ``step_until`` remain as deprecated spellings.
 
 The engine is host code (numpy and the standard library), line for line the
 JAX package's ``repro.runtime.runtime``: both run the same operations in the
@@ -1242,12 +1244,11 @@ class ClusterRuntime:
         return self.metrics
 
     def open_session(self):
-        """Open a session over this runtime — the ``feed / submit /
-        advance / drain / close`` lifecycle handle of the JAX package's
-        ``repro.serve.session.Session``."""
-        raise NotImplementedError(
-            "ClusterRuntime.open_session (the serve.session lifecycle "
-            "handle) comes with the serve slice of the port")
+        """Open a :class:`repro_torch.serve.session.Session` over this
+        runtime — the ``feed / submit / advance / drain / close``
+        lifecycle handle."""
+        from ..serve.session import Session
+        return Session(self)
 
     def step_until(self, t: float, *, max_events: int = 2_000_000) -> int:
         """Deprecated spelling of ``advance(until=t, ...)``."""
@@ -1279,10 +1280,11 @@ def run_policy(policy: str | Policy, workload: Workload, powers, *,
     """Deprecated convenience: one policy, one workload, fresh runtime.
 
     Prefer ``repro_torch.lab.run`` for declarative scenarios, or the
-    session verbs (``submit``/``advance``/``drain``) for incremental use."""
+    session API (``ClusterRuntime(...).open_session()``) for incremental
+    use."""
     warnings.warn("run_policy() is deprecated; use repro_torch.lab.run() or "
-                  "the ClusterRuntime session API (submit/advance/drain)",
-                  DeprecationWarning, stacklevel=2)
+                  "the ClusterRuntime session API (open_session/submit/"
+                  "advance/drain)", DeprecationWarning, stacklevel=2)
     rt = ClusterRuntime(powers, policy, **runtime_kwargs)
     return rt.run(workload, failures=failures, joins=joins,
                   resizes=resizes)

@@ -336,9 +336,11 @@ def test_deprecated_spellings_warn_and_match():
 
 
 def test_what_waits_for_later_slices_says_so():
+    # the serve slice is in: open_session() hands out the session handle
+    from repro_torch.serve import Session
     rt = ClusterRuntime(POWERS, "psts")
-    with pytest.raises(NotImplementedError, match="serve slice"):
-        rt.open_session()
+    session = rt.open_session()
+    assert isinstance(session, Session) and session.rt is rt
     # one class for every constraint diagnostic, a ValueError as in the
     # JAX package: the traces package re-exports the engine's
     from repro_torch import traces

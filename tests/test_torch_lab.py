@@ -155,15 +155,17 @@ def test_unported_parts_say_so():
     # the event engine (the default) and the paper simulator run ...
     assert lab.run(sc).backend == "events"
     assert lab.run(sc, backend="legacy").backend == "legacy"
-    # ... only the online backend still waits for a later slice; the
-    # federated one registers on first use and refuses a single scenario
-    # with the JAX package's reason
-    with pytest.raises(lab.BackendError, match="not ported"):
-        lab.run(sc, backend="online")
+    # ... and so does the online backend (the scheduler service), with the
+    # events backend's metrics; it and the federated backend register on
+    # first use, and the federated one refuses a single scenario with the
+    # JAX package's reason
+    online = lab.run(sc, backend="online")
+    assert online.backend == "online"
+    assert online.metrics == lab.run(sc).metrics
     with pytest.raises(lab.BackendError, match="runs Federation specs"):
         lab.run(sc, backend="federated")
     assert sorted(lab.BACKENDS) == ["batched", "events", "federated",
-                                    "legacy"]
+                                    "legacy", "online"]
     # device= reaches the batched backend alone: a small sweep runs on the
     # host engine, a uniform one of 8 seeds on the batched backend, and an
     # explicit host backend refuses the option as the JAX package's does

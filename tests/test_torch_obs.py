@@ -8,8 +8,10 @@ decision latencies: the tracer's ``decision_stats`` ``mean_us``,
 ``otherData``) and the ``sched_decision_latency_us`` gauge that mirrors
 them (``WALL_CLOCK`` and ``LATENCY_GAUGE`` below). The tracer, ring, probe,
 monitor, registry, exposition and anomaly cases of ``tests/test_obs.py``
-and ``tests/test_ops.py`` that need neither federation, the serve slice nor
-the lab CLI run on the port as well.
+and ``tests/test_ops.py`` that need neither federation, the scheduler
+service nor the lab CLI run on the port as well; those that need the
+service or the CLI are in ``tests/test_torch_online.py`` and
+``tests/test_torch_cli.py``.
 """
 
 import json
