@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 
 1. build   — compile every kernel in src/repro_torch/kernels/csrc (one nvcc
-             per source, all at once) into build/repro_torch_kernels.
+             per source, all at once; five libraries) into
+             build/repro_torch_kernels.
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the main path's shapes and at edge shapes; times of the
              kernel, the plain version and the library yardstick. The FIFO
@@ -150,6 +151,44 @@ Phases, each fatal on failure:
     d. ``template --preset geo-federation`` and ``planet-federation``, then
        ``run`` on each: on ``federated``, every task completes, and WAN
        migrations happen.
+14. training — the ninth slice's path:
+    a. the backward kernels against their plain versions on the card:
+       ``flash_attention_bwd`` (through ``ops.flash_attention``'s autograd,
+       one launch a call) at granite-moe-1b-a400m's training shape (B 4, H
+       16, KV 8, S 2048, hd 64, bf16, causal: each gradient row within 3e-2
+       in relative L2 norm over the rows whose norm is at least 1e-3 of the
+       largest, each element within 6e-2, rtol and atol) and at float32
+       edges (window 16, soft-cap 30, hd 128 and 256: 1e-4 x max), its own
+       tile rule against ``tile_plan``'s index form, a repeat equal to the
+       bit; ``mamba_scan_bwd`` at (1, 2048, 16, 8192) and edges (1e-5 x
+       max). Times beside the plain versions, the bounds and SDPA's
+       backward.
+    b. granite-train: granite-moe-1b-a400m at full width and depth (24
+       layers, f32 params and moments, bf16 compute, weights from a CUDA
+       generator seeded 0) trained 8 steps through ``repro_torch.train.
+       train`` with ``launch.train``'s AdamW and warmup_cosine, remat on, a
+       ``Pipeline`` of 2 shards x 2 rows x 2048 tokens. The counters are
+       zeroed just before each step and read just after: 48 flash forwards
+       (24 and 24 remat recomputes, all on the tensor cores), 24 flash
+       backwards, 48 dispatch-positions launches and none of the others.
+       Losses and gradient norms finite, the mean of the last 3 losses below
+       the first; step time, tokens/s, peak memory, and one more step under
+       torch.profiler for the device's busy share.
+    c. falcon-train: falcon-mamba-7b at full width cut to 2 layers, 4 steps
+       on 1 x 2048 tokens: finite losses, 4 scan forwards and 2 scan
+       backwards a step.
+    d. train-vs-plain: float32 gradients on the card against the CPU's from
+       the same weights: olmo-1b at full width (d 2048, hd 128) with 2
+       layers on 2 x 512 tokens, then granite's 2 layers one sequence at a
+       time, compared when both devices route it alike (a top-k decided by
+       a near tie is reported and left out): the loss within 1e-5
+       relative, each gradient within 1e-3 x its leaf's max|g|.
+    e. restart: ``repro_torch.launch.train.main`` in-process, granite at
+       full width cut to 2 layers, 4 steps with checkpoints every 2 (files
+       under build/chip_smoke_train/); again after the step-4 checkpoint is
+       removed, which resumes at step 2: the resumed losses must equal the
+       uninterrupted run's bit for bit (within 1e-6 relative, reported,
+       if an op around the kernels were not deterministic).
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -163,6 +202,7 @@ import dataclasses
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -178,20 +218,27 @@ import torch  # noqa: E402
 from repro_torch import lab  # noqa: E402
 from repro_torch import obs as obs_mod  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import DocStream, Pipeline  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import mamba_scan as mamba_kernel  # noqa: E402
 from repro_torch.lab.backends import (  # noqa: E402
     assemble_events_result,
     build_events_runtime,
 )
 from repro_torch.lab import backends as lab_backends  # noqa: E402
 from repro_torch.lab import cli as lab_cli  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models.common import dtype_of  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.obs import parse_openmetrics  # noqa: E402
+from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
 from repro_torch.sched import moe_dispatch  # noqa: E402
+from repro_torch.sched.straggler import StragglerMonitor  # noqa: E402
 from repro_torch.serve import Engine, GenRequest  # noqa: E402
+from repro_torch.train import LoopConfig, make_train_step, train  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     VectorConfig,
     batch_slots,
@@ -545,7 +592,9 @@ def phase_sweep(base, cfg, powers, scale):
         f"memory {peak / 2**30:.2f} GiB, launches {launches}")
     if [r.backend for r in results] != ["batched"] * SEEDS:
         fail("the sweep did not auto-dispatch to the batched backend")
-    want = {"prefix_scan": 1 + cfg.n_slots,
+    # the serving and sweep paths launch no backward kernel
+    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+            "prefix_scan": 1 + cfg.n_slots,
             "dispatch_work_prefix": 1 + cfg.n_slots,
             "dispatch_positions": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "mamba_scan": 0}
@@ -599,7 +648,9 @@ def phase_repeat(results, tensors, cfg):
 def device_time_table(fn, wall_s: float, tag: str, watch=()) -> None:
     """Run ``fn`` once under torch.profiler; log device time by kernel and
     its share of ``wall_s``, the same work's unprofiled wall time, and the
-    kernels whose names hold a string of ``watch`` wherever they rank."""
+    kernels whose names hold a string of ``watch`` wherever they rank.
+    Returns the device's busy share of ``wall_s`` (None without device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -613,7 +664,7 @@ def device_time_table(fn, wall_s: float, tag: str, watch=()) -> None:
     total_us = sum(r[0] for r in rows)
     if total_us <= 0:
         log(f"[{tag}] torch.profiler recorded no device time")
-        return
+        return None
     log(f"[{tag}] device kernel time {total_us / 1e6:.3f}s in "
         f"{sum(r[1] for r in rows)} kernel launches = "
         f"{100 * total_us / 1e6 / wall_s:.1f}% of the unprofiled time "
@@ -628,6 +679,7 @@ def device_time_table(fn, wall_s: float, tag: str, watch=()) -> None:
         log(f"[{tag}] {name}: {dev_us / 1e3:.4f} ms device time in {count} "
             f"launches ({dev_us / 1e3 / max(count, 1):.4f} ms each, "
             f"{100 * dev_us / total_us:.2f}% of the device time)")
+    return total_us / 1e6 / wall_s
 
 
 def phase_profile(tensors, cfg, engine_s):
@@ -980,7 +1032,9 @@ def phase_serve(dev):
     peak = torch.cuda.max_memory_allocated()
     n_pre, n_dec = counted.calls["prefill"], counted.calls["decode"]
     n_moe = cfg.n_layers  # every granite layer is MoE
-    want = {"prefix_scan": 0, "dispatch_work_prefix": 0, "mamba_scan": 0,
+    # the serving and sweep paths launch no backward kernel
+    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+            "prefix_scan": 0, "dispatch_work_prefix": 0, "mamba_scan": 0,
             "flash_attention": cfg.n_layers * n_pre,
             "flash_attention_tc": cfg.n_layers * n_pre,
             "dispatch_positions": n_moe * (n_pre + n_dec)}
@@ -1252,7 +1306,9 @@ def phase_falcon_serve(dev):
     counted.restore()
     peak = torch.cuda.max_memory_allocated()
     n_pre, n_dec = counted.calls["prefill"], counted.calls["decode"]
-    want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
+    # the serving and sweep paths launch no backward kernel
+    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+            "prefix_scan": 0, "dispatch_work_prefix": 0,
             "dispatch_positions": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "mamba_scan": cfg.n_layers * n_pre}
     log(f"[falcon-serve] {len(done)} of {SSM_REQUESTS} requests finished; "
@@ -1394,7 +1450,9 @@ def phase_hybrid_vs_plain(dev):
                                              check_cache=False)
     periods = cfg.n_layers // cfg.attn_every
     n_moe = cfg.n_layers // cfg.moe_every
-    want = {"prefix_scan": 0, "dispatch_work_prefix": 0,
+    # the serving and sweep paths launch no backward kernel
+    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+            "prefix_scan": 0, "dispatch_work_prefix": 0,
             "mamba_scan": cfg.n_layers - periods,
             "flash_attention": periods, "flash_attention_tc": 0,
             "dispatch_positions": n_moe}
@@ -1566,7 +1624,9 @@ def phase_trace_sweep(dev, smi: str):
         if flag not in ignored:
             fail(f"trace: backend_options['ignored'] lacks {flag!r}: "
                  f"{ignored}")
-    want = {"prefix_scan": 1 + cfg.n_slots,
+    # the serving and sweep paths launch no backward kernel
+    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+            "prefix_scan": 1 + cfg.n_slots,
             "dispatch_work_prefix": 1 + cfg.n_slots,
             "dispatch_positions": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "mamba_scan": 0}
@@ -1835,7 +1895,9 @@ def phase_cli_sweep(smi: str):
         lab_backends.simulate_batch = engine
     launches = ops.launch_counts()
     T = int(round(scenario().workload.horizon))
-    want = {"prefix_scan": 1 + T, "dispatch_work_prefix": 1 + T,
+    # the serving and sweep paths launch no backward kernel
+    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+            "prefix_scan": 1 + T, "dispatch_work_prefix": 1 + T,
             "dispatch_positions": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "mamba_scan": 0}
     if launches != want:
@@ -1980,6 +2042,502 @@ def phase_cli(ev0, smi: str):
     phase_cli_presets(smi)
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 14: training — the backward kernels, granite-train, falcon-train,
+# card against CPU gradients, restart through the CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_SHARDS = 2        # 14b: Pipeline of 2 shards x 2 rows x 2048 tokens
+TRAIN_ROWS = 2
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-3         # launch.train's optimizer and schedule
+TRAIN_WARMUP = 20
+FALCON_TRAIN_LAYERS = 2  # 14c: falcon-mamba-7b's 64 layers do not fit
+FALCON_TRAIN_STEPS = 4
+GRAD_LAYERS = 2         # 14d
+GRAD_ROWS = 2
+GRAD_SEQ = 512
+GRAD_TOL = 1e-3         # x each leaf's max|g|, card vs CPU
+LOSS_RTOL = 1e-5
+RESTART_LAYERS = 2      # 14e: a ~2 GB checkpoint
+RESTART_STEPS = 4
+RESTART_EVERY = 2
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+# backward kernels against their plain versions (PERF.md section 2): bf16
+# per gradient row ||got - want|| / ||want|| over hd, on the rows whose norm
+# is at least 1e-3 of the largest (a query that sees one key has dq = 0),
+# and per element (rtol and atol); float32 x each gradient's max|.|
+BWD_BF16_ROW_TOL = 3e-2
+BWD_BF16_TOL = 6e-2
+BWD_F32_TOL = 1e-4
+SCAN_BWD_TOL = 1e-5
+
+
+def check_bwd_tile_plan():
+    """The backward's dQ tile rule (its make_plan, on the host) against
+    ``flash_attention.tile_plan``'s index form, over a grid of shapes."""
+    n = 0
+    for s in (1, 63, 64, 65, 129, 700, 2048):
+        for causal in (True, False):
+            for window in (None, 1, 16, 64, 100, 300):
+                for q0 in range(0, s, 64):
+                    got = flash.cuda_bwd_tile_plan(q0, 64, s, causal, window)
+                    want = flash.tile_plan(q0, 64, 64, s, s, causal, window)
+                    if got != want:
+                        fail(f"flash backward tile plan differs at "
+                             f"{(q0, s, causal, window)}: {got} != {want}")
+                    n += 1
+    log(f"[train-kernels] flash backward tile plan: tile_plan's tiles for "
+        f"all {n} query tiles of the grid")
+
+
+def flash_bwd_check(label, b, h, kv, s, hd, dtype, g, dev, **kw):
+    """dq, dk, dv through ``ops.flash_attention``'s autograd (one backward
+    launch) against ``ref.flash_attention_bwd_ref``. Returns max|err|, the
+    worst row's relative error and the inputs."""
+    q, do = (torch.randn(b, h, s, hd, generator=g).to(dev, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, kv, s, hd, generator=g).to(dev, dtype)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, do)
+    if ops.launch_counts()["flash_attention_bwd"] != before + 1:
+        fail(f"flash backward {label}: not one backward launch")
+    want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    worst, worst_row = 0.0, 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        if a.dtype != dtype or a.shape != w.shape:
+            fail(f"flash backward {label}: {name} is {a.dtype} "
+                 f"{tuple(a.shape)}")
+        a, w = a.float(), w.float()
+        err = (a - w).abs()
+        worst = max(worst, err.max().item())
+        if dtype == torch.bfloat16:
+            norms = w.norm(dim=-1)
+            rows = (norms > 0) & (norms >= 1e-3 * norms.max())
+            row = (((a - w).norm(dim=-1)[rows] / norms[rows]).max().item()
+                   if rows.any() else 0.0)
+            worst_row = max(worst_row, row)
+            if not bool((err <= BWD_BF16_TOL + BWD_BF16_TOL * w.abs()).all()):
+                fail(f"flash backward {label}: {name} beyond "
+                     f"{BWD_BF16_TOL} (rtol and atol)")
+            if not row <= BWD_BF16_ROW_TOL:
+                fail(f"flash backward {label}: {name} row error {row:.3e}")
+        elif not err.max().item() <= BWD_F32_TOL * w.abs().max().item():
+            fail(f"flash backward {label}: {name} error "
+                 f"{err.max().item():.3e} beyond {BWD_F32_TOL} x max")
+    log(f"[train-kernels] flash_attention_bwd {label} {(b, h, kv, s, hd)} "
+        f"{str(dtype)[6:]} {kw or ''}: max|err|={worst:.3e}"
+        + (f", worst row's relative L2 error {worst_row:.3e}"
+           if dtype == torch.bfloat16 else ""))
+    return worst, worst_row, (q, k, v, do)
+
+
+def phase_kernels_bwd(dev, smi: str):
+    """14a: both backward kernels against their plain versions on the card,
+    at the training path's shapes and at edges; times, bounds and SDPA's
+    backward. Returns their kernel records (launches filled in later)."""
+    g = torch.Generator().manual_seed(14)
+    bf16, f32 = torch.bfloat16, torch.float32
+    check_bwd_tile_plan()
+    worst, worst_row, (q, k, v, do) = flash_bwd_check(
+        "granite train", 4, 16, 8, 2048, 64, bf16, g, dev)
+    for label, shape, dtype, extra in [
+            ("window 16", (2, 4, 2, 300, 64), f32, {"window": 16}),
+            ("soft-cap 30", (2, 4, 2, 300, 64), f32, {"softcap": 30.0}),
+            ("olmo hd 128", (1, 4, 4, 200, 128), f32, {}),
+            ("hd 256 window", (1, 4, 2, 200, 256), f32, {"window": 50}),
+            ("S=1", (2, 4, 2, 1, 64), bf16, {}),
+            ("S=65", (2, 16, 8, 65, 64), bf16, {}),
+            ("window+soft-cap hd 128", (1, 8, 4, 300, 128), bf16,
+             {"window": 100, "softcap": 30.0})]:
+        flash_bwd_check(label, *shape, dtype, g, dev, **extra)
+    _, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash.flash_attention_bwd_cuda(q, k, v, do, lse)
+    again = flash.flash_attention_bwd_cuda(q, k, v, do, lse)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("flash_attention_bwd: two calls on the same inputs differ")
+    ms = time_ms(lambda: flash.flash_attention_bwd_cuda(q, k, v, do, lse),
+                 10)
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do), 3)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qs, ks, vs), do,
+                                                 retain_graph=True), 10)
+    fwd_ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v,
+                                                        return_lse=True), 10)
+    b, h, s, hd = q.shape
+    pairs = b * h * s * (s + 1) // 2
+    # read q, k, v, dO and the LSE once, write dq, dk, dv: 5 products of
+    # 2 hd flops per visible pair (S, dP, dV, dK, dQ)
+    n_bytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bound, by = bound_ms(n_bytes, 10 * hd * pairs, BF16_OPS_PER_S)
+    flash_bwd = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:97", max_abs_err=worst,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=lib_ms, shape=[b, h, k.shape[1], s, hd],
+        worst_row_err=worst_row, forward_with_lse_ms=fwd_ms)
+    del q, k, v, do, lse, qs, ks, vs, o, first, again
+
+    # -- mamba_scan_bwd at falcon-train's shape, and edges
+    gd = torch.Generator(device=dev).manual_seed(14)
+    for shape, dtype in [((2, 37, 3, 36), f32), ((1, 100, 2, 64), bf16),
+                         ((1, 5, 2, 7), f32)]:
+        da = torch.rand(shape, generator=gd, device=dev).to(dtype)
+        dbx = torch.randn(shape, generator=gd, device=dev).to(dtype)
+        go = torch.randn(shape, generator=gd, device=dev)
+        leaves = [da.clone().requires_grad_(True),
+                  dbx.clone().requires_grad_(True)]
+        before = ops.launch_counts()["mamba_scan_bwd"]
+        h = ops.mamba_scan(*leaves)
+        got = torch.autograd.grad(h, leaves, go)
+        if ops.launch_counts()["mamba_scan_bwd"] != before + 1:
+            fail(f"mamba_scan_bwd {shape}: not one backward launch")
+        want = ref.mamba_scan_bwd_ref(da, h.detach(), go)
+        for a, w in zip(got, want):
+            w = w.to(dtype).float()
+            if not (a.float() - w).abs().max().item() <= \
+                    SCAN_BWD_TOL * w.abs().max().item():
+                fail(f"mamba_scan_bwd {shape} {dtype}: beyond {SCAN_BWD_TOL}")
+    shape = (1, TRAIN_SEQ, 16, 8192)
+    da = torch.rand(shape, generator=gd, device=dev)
+    dbx = torch.randn(shape, generator=gd, device=dev)
+    go = torch.randn(shape, generator=gd, device=dev)
+    h = ops.mamba_scan(da, dbx)
+    got = mamba_kernel.mamba_scan_bwd_cuda(da, h, go)
+    want = ref.mamba_scan_bwd_ref(da, h, go)
+    torch.cuda.synchronize()
+    scan_err = 0.0
+    for a, w in zip(got, want):
+        err = (a - w).abs().max().item()
+        scan_err = max(scan_err, err)
+        if not err <= SCAN_BWD_TOL * w.abs().max().item():
+            fail(f"mamba_scan_bwd {shape}: error {err:.3e} beyond "
+                 f"{SCAN_BWD_TOL} x max")
+    del got, want
+    scan_ms = time_ms(lambda: mamba_kernel.mamba_scan_bwd_cuda(da, h, go), 10)
+    scan_plain = time_ms(lambda: ref.mamba_scan_bwd_ref(da, h, go), 1)
+    n = da.numel()
+    s_bound, s_by = bound_ms(20 * n, 3 * n, FP32_OPS_PER_S)
+    log(f"[train-kernels] mamba_scan_bwd {shape} f32: max|err|="
+        f"{scan_err:.3e} (edges: S=37 di=36, bf16 inputs, di=7 all within "
+        f"{SCAN_BWD_TOL} x max)")
+    scan_bwd = dict(
+        name="mamba_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        replaces="src/repro/models/ssm.py:94", max_abs_err=scan_err,
+        ms=scan_ms, plain_ms=scan_plain, bound_ms=s_bound, bound_by=s_by,
+        library_ms=None, shape=list(shape))
+    for rec in (flash_bwd, scan_bwd):
+        log(f"[train-kernels] {rec['name']} at {rec['shape']}: "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}) = {100 * rec['bound_ms'] / rec['ms']:.1f}%"
+            f" of the bound ({smi})")
+    log(f"[train-kernels] flash forward with LSE at the same shape "
+        f"{fwd_ms:.4f} ms; SDPA's backward {lib_ms:.4f} ms")
+    return [flash_bwd, scan_bwd]
+
+
+def run_train(tag, cfg, dev, smi, *, shards, rows, steps, expected):
+    """Train ``cfg`` on the card through ``repro_torch.train.train`` with
+    launch.train's optimizer and schedule (remat on, the config's policy).
+    The launch counters are zeroed just before each step and read just
+    after (the loop's metrics hook), and must equal ``expected`` (zeros for
+    the kernels it leaves out). Returns (lm, state, pipeline, history,
+    per-step launch counts)."""
+    lm = LM(cfg, device=dev)
+    monitor = StragglerMonitor(n_hosts=shards)
+    stream = DocStream(vocab_size=cfg.vocab_size, mean_len=TRAIN_SEQ // 2,
+                       max_len=TRAIN_SEQ, seed=0)
+    pipe = Pipeline(stream, shard_dims=(shards,), rows_per_shard=rows,
+                    seq_len=TRAIN_SEQ, monitor=monitor)
+    opt = AdamW(moments_dtype=dtype_of(cfg.moments_dtype))
+    per_step = []
+
+    def hook(step, row):
+        per_step.append(ops.launch_counts())
+        ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = train(lm, opt, warmup_cosine(TRAIN_LR, TRAIN_WARMUP, steps),
+                        pipe, LoopConfig(steps=steps, seed=0, log_every=1,
+                                         metrics_hook=hook), monitor=monitor)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if len(hist) != steps or len(per_step) != steps:
+        fail(f"{tag}: {len(hist)} steps recorded of {steps}")
+    for row, counts in zip(hist, per_step):
+        if not (math.isfinite(row["loss"]) and math.isfinite(
+                row["grad_norm"])):
+            fail(f"{tag} step {row['step']}: loss {row['loss']}, grad norm "
+                 f"{row['grad_norm']}")
+        want = {name: expected.get(name, 0) for name in counts}
+        if counts != want:
+            fail(f"{tag} step {row['step']}: launches {counts}, expected "
+                 f"{want}")
+    tokens = shards * rows * TRAIN_SEQ
+    dts = [row["dt"] for row in hist]
+    steady = dts[1:] or dts
+    mean_dt = sum(steady) / len(steady)
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params, {shards}x{rows}x{TRAIN_SEQ} "
+        f"tokens a step, remat {cfg.remat_policy}: losses "
+        f"{[round(r['loss'], 4) for r in hist]}, grad norms "
+        f"{[round(r['grad_norm'], 3) for r in hist]}")
+    log(f"[{tag}] step time {mean_dt * 1e3:.1f} ms (mean of steps 1-"
+        f"{steps - 1}; step 0 {dts[0] * 1e3:.1f} ms), {tokens / mean_dt:.0f} "
+        f"tokens/s, peak memory {peak / 1e9:.2f} GB, {wall:.1f}s for "
+        f"{steps} steps; launches a step {per_step[-1]} ({smi})")
+    return lm, state, opt, pipe, hist, per_step
+
+
+def phase_granite_train(dev, smi: str):
+    """14b: granite-moe-1b-a400m at full width and depth trained 8 steps;
+    the mean of the last 3 losses below the first; one more step under
+    torch.profiler for the device's busy share."""
+    cfg = get_config(ARCH)
+    n = cfg.n_layers
+    lm, state, opt, pipe, hist, per_step = run_train(
+        "granite-train", cfg, dev, smi, shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
+        steps=TRAIN_STEPS,
+        expected={"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
+                  "flash_attention_bwd": n, "dispatch_positions": 2 * n})
+    first = hist[0]["loss"]
+    last = sum(r["loss"] for r in hist[-3:]) / 3
+    if not last < first:
+        fail(f"granite-train: the last 3 losses' mean {last:.4f} is not "
+             f"below the first {first:.4f}")
+    step_fn = make_train_step(lm, opt, warmup_cosine(
+        TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS), remat=True)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch(TRAIN_STEPS)[0].items()}
+
+    def one_step():
+        step_fn(state, batch)[1]["loss"].item()
+    one_step()
+    t0 = time.perf_counter()
+    one_step()
+    wall = time.perf_counter() - t0
+    busy = device_time_table(one_step, wall, "granite-train-profile",
+                             watch=("flash_bwd", "flash_fwd",
+                                    "positions_levels"))
+    if busy is None:
+        fail("granite-train: the profiled step recorded no device time")
+    log(f"[granite-train] one step {wall * 1e3:.1f} ms, device busy "
+        f"{100 * busy:.1f}% of it; the last 3 losses' mean {last:.4f} < the "
+        f"first {first:.4f}")
+    del lm, state, opt, step_fn
+    return {name: sum(c[name] for c in per_step) for name in per_step[0]}
+
+
+def phase_falcon_train(dev, smi: str):
+    """14c: falcon-mamba-7b at full width, depth cut to 2 layers, trained 4
+    steps on one row of 2048 tokens: finite losses, the scan's forward and
+    backward launches."""
+    cfg = dataclasses.replace(get_config(SSM_ARCH),
+                              n_layers=FALCON_TRAIN_LAYERS)
+    n = cfg.n_layers
+    *_, per_step = run_train(
+        "falcon-train", cfg, dev, smi, shards=1, rows=1,
+        steps=FALCON_TRAIN_STEPS,
+        expected={"mamba_scan": 2 * n, "mamba_scan_bwd": n})
+    return {name: sum(c[name] for c in per_step) for name in per_step[0]}
+
+
+def loss_grads(lm, batch):
+    loss, _ = lm.loss(batch)
+    names, tensors = zip(*lm.named_parameters())
+    grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+    return loss.detach(), {n: (torch.zeros_like(t) if g is None else g)
+                           for n, t, g in zip(names, tensors, grads)}
+
+
+def card_and_host(cfg, dev):
+    card = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    host = LM(cfg, device="cpu")
+    host.load_state_dict({n: t.cpu() for n, t in card.state_dict().items()})
+    return card.requires_grad_(True), host.requires_grad_(True)
+
+
+def grads_close(tag, lc, gc, lh, gh):
+    """Loss within LOSS_RTOL, each gradient within GRAD_TOL x its leaf's
+    max|g|; returns the worst leaf's error over its max."""
+    if not abs(lc.item() - lh.item()) <= LOSS_RTOL * abs(lh.item()):
+        fail(f"{tag}: loss {lc.item()} on the card, {lh.item()} on the CPU")
+    worst = 0.0
+    for name, w in gh.items():
+        err = (gc[name].cpu() - w).abs().max().item()
+        scale = w.abs().max().item()
+        if not err <= GRAD_TOL * scale:
+            fail(f"{tag}: {name} gradient differs by {err:.3e}, max|g| "
+                 f"{scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def phase_train_vs_plain(dev):
+    """14d: the gradients on the card against the CPU's (plain versions),
+    float32, the same weights: olmo-1b at full width (d 2048, hd 128) with
+    2 layers, B 2 x S 512; then granite-moe-1b-a400m's 2 layers, one
+    sequence (one routing group) at a time, compared when both devices
+    route it alike; a sequence whose top-k differs at a near tie (gap below
+    1e-4, as phase 6) is reported and left out."""
+    rng = np.random.default_rng(5)
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=GRAD_LAYERS,
+                              dtype="float32")
+    card, host = card_and_host(cfg, dev)
+    tokens = rng.integers(0, cfg.vocab_size, (GRAD_ROWS, GRAD_SEQ)).astype(
+        np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -1
+    batch = {"tokens": tokens, "labels": labels}
+    ops.reset_launch_counts()
+    lc, gc = loss_grads(card, batch)
+    counts = ops.launch_counts()
+    if (counts["flash_attention"], counts["flash_attention_bwd"],
+            counts["flash_attention_tc"]) != (GRAD_LAYERS, GRAD_LAYERS, 0):
+        fail(f"olmo grads: launches {counts}")
+    lh, gh = loss_grads(host, batch)
+    worst = grads_close("olmo grads", lc, gc, lh, gh)
+    log(f"[train-vs-plain] olmo-1b x {GRAD_LAYERS} layers f32 "
+        f"({GRAD_ROWS}x{GRAD_SEQ}): loss {lc.item():.6f} vs {lh.item():.6f},"
+        f" every gradient within {worst:.3e} x its max|g| (bound {GRAD_TOL})")
+    del card, host, gc, gh
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=GRAD_LAYERS,
+                              dtype="float32")
+    card, host = card_and_host(cfg, dev)
+    k = cfg.experts_per_token
+    calls = []
+    plain_dispatch = moe_mod.dispatch_grouped
+
+    def recording(logits, **kw):
+        res = plain_dispatch(logits, **kw)
+        calls.append((logits.detach(), res))
+        return res
+    compared = 0
+    moe_mod.dispatch_grouped = recording
+    try:
+        for row in range(4):
+            toks = rng.integers(0, cfg.vocab_size, (1, GRAD_SEQ)).astype(
+                np.int32)
+            one = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+            calls.clear()
+            lc, gc = loss_grads(card, one)
+            on_card = list(calls)
+            calls.clear()
+            lh, gh = loss_grads(host, one)
+            on_host = list(calls)
+            tie = None
+            for (rl, rc), (hl, rh) in zip(on_card, on_host):
+                if all(torch.equal(getattr(rc, f).cpu(), getattr(rh, f))
+                       for f in ("expert_idx", "slot_idx", "keep")):
+                    continue
+                top = torch.topk(hl, k + 1, dim=-1)
+                gaps = (top.values[..., :-1] - top.values[..., 1:]).min(
+                    -1).values
+                flipped = (torch.topk(rl.cpu(), k, dim=-1).indices
+                           != top.indices[..., :k]).any(-1)
+                if not flipped.any():
+                    fail(f"granite grads row {row}: routing differs with "
+                         f"the same top-k choices")
+                tie = gaps[flipped].max().item()
+                if not tie < 1e-4:
+                    fail(f"granite grads row {row}: top-k differs at a gap "
+                         f"of {tie:.3e}, not a near tie")
+                break
+            if tie is not None:
+                log(f"[train-vs-plain] granite row {row}: top-k decided by a "
+                    f"near tie (gap {tie:.2e}); left out")
+                continue
+            worst = grads_close(f"granite grads row {row}", lc, gc, lh, gh)
+            compared += 1
+            log(f"[train-vs-plain] granite x {GRAD_LAYERS} layers f32 row "
+                f"{row} (1x{GRAD_SEQ}), routed alike: loss {lc.item():.6f} "
+                f"vs {lh.item():.6f}, gradients within {worst:.3e} x max|g|")
+    finally:
+        moe_mod.dispatch_grouped = plain_dispatch
+    if not compared:
+        fail("granite grads: every row diverged at a near tie")
+
+
+def phase_restart(smi: str):
+    """14e: ``python -m repro_torch.launch.train``'s ``main`` in-process,
+    granite-moe-1b-a400m at full width cut to 2 layers: 4 steps with
+    checkpoints every 2, then again after the step-4 checkpoint is removed,
+    which resumes from step 2; the resumed losses must equal the
+    uninterrupted run's."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    ckpt = TRAIN_DIR / "ckpt"
+    argv = ["--arch", ARCH, "--layers", str(RESTART_LAYERS), "--steps",
+            str(RESTART_STEPS), "--ckpt-every", str(RESTART_EVERY),
+            "--ckpt-dir", str(ckpt), "--rows", str(TRAIN_ROWS), "--shards",
+            str(TRAIN_SHARDS), "--seq-len", str(TRAIN_SEQ), "--log-every",
+            "1"]
+
+    def run():
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            hist = launch_train.main(argv)
+        record = json.loads(out.getvalue().strip().splitlines()[-1])
+        return hist, record, time.perf_counter() - t0
+    h1, r1, s1 = run()
+    if sorted(r1) != ["final_loss", "final_step", "first_loss"] or \
+            r1["final_step"] != RESTART_STEPS:
+        fail(f"restart: the CLI printed {r1}")
+    saved = sorted(d.name for d in ckpt.iterdir())
+    size = sum(f.stat().st_size for f in (ckpt / saved[-1]).iterdir())
+    shutil.rmtree(ckpt / f"step_{RESTART_STEPS:010d}")
+    h2, r2, s2 = run()
+    if [r["step"] for r in h2] != list(range(RESTART_EVERY, RESTART_STEPS)):
+        fail(f"restart: resumed at steps {[r['step'] for r in h2]}")
+    want = [r["loss"] for r in h1[RESTART_EVERY:]]
+    got = [r["loss"] for r in h2]
+    if got == want:
+        verdict = "equal bit for bit"
+    else:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if not rel <= 1e-6:
+            fail(f"restart: resumed losses {got} != {want}")
+        verdict = f"NOT bit-identical, within {rel:.3e} relative"
+    log(f"[restart] {ARCH} x {RESTART_LAYERS} layers through the CLI: "
+        f"checkpoints {saved} ({size / 1e9:.2f} GB each), run {s1:.1f}s, "
+        f"resumed from step {RESTART_EVERY} in {s2:.1f}s; resumed losses "
+        f"{got} vs {want}: {verdict} ({smi})")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def phase_train(smi: str, dev):
+    """Phase 14; returns the backward kernels' records and the training
+    path's launch counts (14b)."""
+    t14 = time.perf_counter()
+    records = phase_kernels_bwd(dev, smi)
+    torch.cuda.empty_cache()
+    granite = phase_granite_train(dev, smi)
+    torch.cuda.empty_cache()
+    falcon = phase_falcon_train(dev, smi)
+    records[0]["launches"] = granite["flash_attention_bwd"]
+    records[1]["launches"] = falcon["mamba_scan_bwd"]
+    records[1]["falcon_train_launches"] = falcon["mamba_scan_bwd"]
+    torch.cuda.empty_cache()
+    phase_train_vs_plain(dev)
+    torch.cuda.empty_cache()
+    phase_restart(smi)
+    torch.cuda.empty_cache()
+    log(f"[phase 14] {time.perf_counter() - t14:.1f}s")
+    return records, granite, falcon
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2057,6 +2615,12 @@ def main() -> int:
     for k in kernels[:2]:
         k["cli_launches"] = launches[k["name"]]
     log(f"[phase 13] {time.perf_counter() - t13:.1f}s")
+    records, granite, falcon = phase_train(smi, dev)
+    for k in kernels:
+        if k["name"] in granite:
+            k["train_launches"] = granite[k["name"]]
+    kernels[-1]["falcon_train_launches"] = falcon["mamba_scan"]
+    kernels += records
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -29,7 +29,7 @@ __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build", "load", "check",
 
 # one shared library per source in csrc/
 KERNEL_SOURCES = ("prefix_scan", "psts_dispatch", "flash_attention",
-                  "mamba_scan")
+                  "flash_attention_bwd", "mamba_scan")
 
 _CSRC = Path(__file__).resolve().with_name("csrc")
 # <checkout>/src/repro_torch/kernels/_build.py -> <checkout>/build/...

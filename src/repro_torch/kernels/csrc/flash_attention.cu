@@ -198,7 +198,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              const int32_t* __restrict__ lengths, int H, int KV, int S,
+              const int32_t* __restrict__ lengths, float* __restrict__ lse,
+              int H, int KV, int S,
               int hd, Strides st, float scale, int causal, int window,
               float softcap) {
   extern __shared__ float4 smem_f4[];
@@ -330,6 +331,8 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
     const int r = ty * 4 + i;
     if (r >= q_rows) continue;
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + q0 + r] = m[i] + logf(l[i]);
     float* orow = o + b * st.ob + h * st.oh + (q0 + r) * st.os;
 #pragma unroll
     for (int jj = 0; jj < HD / 64; ++jj) {
@@ -344,7 +347,8 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int32_t* lengths, int B, int H, int KV, int S,
+                   const int32_t* lengths, float* lse, int B, int H, int KV,
+                   int S,
                    int hd, const Strides& st, float scale, int causal,
                    int window, float softcap, int device,
                    cudaStream_t stream) {
@@ -355,8 +359,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lengths, H, KV,
-      S, hd, st, scale, causal, window, softcap);
+      static_cast<const float*>(v), static_cast<float*>(o), lengths, lse, H,
+      KV, S, hd, st, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -494,7 +498,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, Tune<HD>::kMinBlocks)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
-             const int32_t* __restrict__ lengths, int H, int KV, int S,
+             const int32_t* __restrict__ lengths, float* __restrict__ lse,
+             int H, int KV, int S,
              int hd,
              Strides st, float scale, int causal, int window,
              float softcap) {
@@ -715,6 +720,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.0f / fmaxf(sum, 1e-30f);
     const int r = warp * 16 + g + 8 * hh;
     if (r >= q_rows) continue;
+    // m is in units of q.k: the row's log-sum-exp is m * scale + log(sum)
+    if (lse != nullptr && tig == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + q0 + r] =
+          m[hh] * scale + logf(sum);
     bf16* orow = o + b * st.ob + h * st.oh + (q0 + r) * st.os;
 #pragma unroll
     for (int d = 0; d < kD; ++d) {
@@ -728,7 +737,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const int32_t* lengths, int B, int H, int KV, int S,
+                   const int32_t* lengths, float* lse, int B, int H, int KV,
+                   int S,
                    int hd, const Strides& st, float scale, int causal,
                    int window, float softcap, int device,
                    cudaStream_t stream) {
@@ -741,15 +751,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, n_tiles);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lengths, H, KV, S,
-      hd, st, scale, causal, window, softcap);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lengths, lse, H, KV,
+      S, hd, st, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
 using LaunchFn = cudaError_t (*)(const void*, const void*, const void*,
-                                 void*, const int32_t*, int, int, int, int,
+                                 void*, const int32_t*, float*, int, int, int,
+                                 int,
                                  int, const Strides&, float, int, int, float,
                                  int, cudaStream_t);
 
@@ -757,7 +768,7 @@ using LaunchFn = cudaError_t (*)(const void*, const void*, const void*,
 // it) and launches.
 int run(LaunchFn hd64, LaunchFn hd128, LaunchFn hd256, const void* q,
         const void* k, const void* v, void* o, const int32_t* lengths,
-        int64_t B, int64_t H, int64_t KV, int64_t S, int64_t hd,
+        float* lse, int64_t B, int64_t H, int64_t KV, int64_t S, int64_t hd,
         const int64_t* strides, float scale, int causal, int64_t window,
         float softcap, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -770,7 +781,8 @@ int run(LaunchFn hd64, LaunchFn hd128, LaunchFn hd256, const void* q,
                    strides[4], strides[5], strides[6], strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   const LaunchFn fn = hd <= 64 ? hd64 : (hd <= 128 ? hd128 : hd256);
-  err = fn(q, k, v, o, lengths, static_cast<int>(B), static_cast<int>(H),
+  err = fn(q, k, v, o, lengths, lse, static_cast<int>(B),
+           static_cast<int>(H),
            static_cast<int>(KV), static_cast<int>(S), static_cast<int>(hd),
            st, scale, causal, window > 0 ? static_cast<int>(window) : 0,
            softcap, device, static_cast<cudaStream_t>(stream));
@@ -784,29 +796,34 @@ int run(LaunchFn hd64, LaunchFn hd128, LaunchFn hd256, const void* q,
 // strides, (batch, head, seq) of q, k, v, o in that order; the head
 // dimension is contiguous and every row starts on 16 bytes. lengths: null
 // for the index form, else (B,) int32 L_b on the device for the length
-// form. window <= 0: none; softcap <= 0: none. Returns a cudaError_t (0 = ok).
+// form. lse: null, or (B, H, S) float32 contiguous on the device, which
+// then gets each query row's natural log-sum-exp of its (capped, masked)
+// logits, the backward kernels' input (flash_attention_bwd.cu). window <= 0:
+// none; softcap <= 0: none. Returns a cudaError_t (0 = ok).
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o,
-                                   const int32_t* lengths, int64_t B,
-                                   int64_t H, int64_t KV, int64_t S,
+                                   const int32_t* lengths, float* lse,
+                                   int64_t B, int64_t H, int64_t KV,
+                                   int64_t S,
                                    int64_t hd,
                                    const int64_t* strides, float scale,
                                    int causal, int64_t window, float softcap,
                                    int device, void* stream) {
   return run(f32::launch<64>, f32::launch<128>, f32::launch<256>, q, k, v, o,
-             lengths, B, H, KV, S, hd, strides, scale, causal, window,
+             lengths, lse, B, H, KV, S, hd, strides, scale, causal, window,
              softcap, device, stream);
 }
 
 extern "C" int flash_attention_tc(const void* q, const void* k,
                                   const void* v, void* o,
-                                  const int32_t* lengths, int64_t B,
-                                  int64_t H, int64_t KV, int64_t S, int64_t hd,
+                                  const int32_t* lengths, float* lse,
+                                  int64_t B, int64_t H, int64_t KV, int64_t S,
+                                  int64_t hd,
                                   const int64_t* strides, float scale,
                                   int causal, int64_t window, float softcap,
                                   int device, void* stream) {
   return run(tc::launch<64>, tc::launch<128>, tc::launch<256>, q, k, v, o,
-             lengths, B, H, KV, S, hd, strides, scale, causal, window,
+             lengths, lse, B, H, KV, S, hd, strides, scale, causal, window,
              softcap, device, stream);
 }
 

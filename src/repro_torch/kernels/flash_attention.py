@@ -14,8 +14,16 @@ through the MoE router and takes expert capacity) matches the JAX model's.
 Both visit only the KV tiles of :func:`tile_plan`; a causal bfloat16 query
 tile wholly in the padding copies V's row 0, the one key its rows see.
 
-``LAUNCHES`` counts every launch of either kernel in this process,
-``TC_LAUNCHES`` those of the tensor-core kernel.
+The backward (``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd_cuda`)
+gives dQ, dK and dV of the index form from q, k, v, the output's gradient
+and the forward's per-row log-sum-exp, which both forward kernels write when
+asked (``return_lse``); it recomputes P under the same mask and tile plan
+(two launches: dQ per query tile, which also writes the softmax backward's
+row sums, then dK/dV per key tile; float32 FMAs for both types).
+
+``LAUNCHES`` counts every launch of either forward kernel in this process,
+``TC_LAUNCHES`` those of the tensor-core kernel, ``BWD_LAUNCHES`` the
+backward's calls (two launches each, counted as one).
 """
 
 from __future__ import annotations
@@ -27,14 +35,16 @@ import torch
 from . import _build
 from .ref import check_lengths
 
-__all__ = ["flash_attention_cuda", "tile_plan", "cuda_tile_plan",
-           "LAUNCHES", "TC_LAUNCHES"]
+__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "tile_plan",
+           "cuda_tile_plan", "cuda_bwd_tile_plan", "LAUNCHES", "TC_LAUNCHES",
+           "BWD_LAUNCHES"]
 
 LAUNCHES = 0
 TC_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
              ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
              ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -43,6 +53,14 @@ _KERNELS = {torch.bfloat16: "flash_attention_tc",
 _SIGNATURES = {name: _ARGTYPES for name in _KERNELS.values()}
 _SIGNATURES["flash_tile_plan"] = [ctypes.c_int] * 7 + [
     ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+_BWD_SIGNATURES = {
+    "flash_attention_bwd": [ctypes.c_int] + [ctypes.c_void_p] * 9
+    + [ctypes.c_int64] * 5 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+                              ctypes.c_int, ctypes.c_int64, ctypes.c_float,
+                              ctypes.c_int, ctypes.c_void_p],
+    "flash_bwd_tile_plan": [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int]}
+_BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def tile_plan(q0: int, block_q: int, block_k: int, S: int, L: int,
@@ -87,31 +105,13 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
-                         lengths=None):
-    """q (B, H, S, hd), k and v (B, KV, S, hd) on one CUDA device, float32
-    or bfloat16 alike, H % KV == 0, hd <= 256 and a multiple of 8; any
-    strides with the head dimension contiguous (the model passes permuted
-    (B, S, H, hd) views). Returns (B, H, S, hd) in ``q.dtype``, laid out as
-    a permuted (B, S, H, hd) tensor.
-
-    ``lengths`` (B,) integers, each in [1, S], selects the length form:
-    right-padded prompts of ``lengths[b]`` real tokens (see
-    ``ref.flash_attention_ref``'s ``lengths``). A CPU tensor's values are
-    checked; a card tensor's are not (that would sync), and the kernels
-    clamp them to [1, S]. The kernels visit only the KV tiles that the mask
-    admits (:func:`tile_plan`)."""
-    global LAUNCHES, TC_LAUNCHES
-    entry = _KERNELS.get(q.dtype)
-    if entry is None:
-        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+def _check_inputs(q, k, v, window, softcap, who):
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_cuda takes q, k, v of one type, "
+        raise TypeError(f"{who} takes q, k, v of one type, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
-        raise ValueError(f"flash_attention_cuda needs q, k, v on one CUDA "
+        raise ValueError(f"{who} needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, H, S, hd) and k, v (B, KV, S, hd), "
@@ -131,20 +131,54 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
+                         lengths=None, return_lse=False):
+    """q (B, H, S, hd), k and v (B, KV, S, hd) on one CUDA device, float32
+    or bfloat16 alike, H % KV == 0, hd <= 256 and a multiple of 8; any
+    strides with the head dimension contiguous (the model passes permuted
+    (B, S, H, hd) views). Returns (B, H, S, hd) in ``q.dtype``, laid out as
+    a permuted (B, S, H, hd) tensor.
+
+    ``lengths`` (B,) integers, each in [1, S], selects the length form:
+    right-padded prompts of ``lengths[b]`` real tokens (see
+    ``ref.flash_attention_ref``'s ``lengths``). A CPU tensor's values are
+    checked; a card tensor's are not (that would sync), and the kernels
+    clamp them to [1, S]. The kernels visit only the KV tiles that the mask
+    admits (:func:`tile_plan`).
+
+    ``return_lse`` (index form only) also returns the (B, H, S) float32
+    log-sum-exp of each query row's logits, the backward's input."""
+    global LAUNCHES, TC_LAUNCHES
+    entry = _KERNELS.get(q.dtype)
+    if entry is None:
+        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    _check_inputs(q, k, v, window, softcap, "flash_attention_cuda")
+    b, h, s, hd = q.shape
+    kvh = k.shape[1]
+    dev = q.device
     if lengths is not None:
+        if return_lse:
+            raise ValueError("the length form gives no log-sum-exp: the "
+                             "backward takes the index form")
         check_lengths(lengths, b, s, values=lengths.device.type == "cpu")
         lengths = lengths.to(device=dev, dtype=torch.int32)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=dev)
     out = out.permute(0, 2, 1, 3)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if b == 0 or s == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_int64 * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     lib = _build.load("flash_attention", _SIGNATURES)
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lengths is None else lengths.data_ptr(), b, h, kvh, s, hd,
+        None if lengths is None else lengths.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, kvh, s, hd,
         strides, hd ** -0.5, int(bool(causal)),
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), dev.index,
@@ -153,7 +187,62 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
     LAUNCHES += 1
     if entry == "flash_attention_tc":
         TC_LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when its head dimension is contiguous, else a copy."""
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def flash_attention_bwd_cuda(q, k, v, dout, lse, *, causal=True,
+                             window=None, softcap=None):
+    """(dq, dk, dv) of the index form of :func:`flash_attention_cuda` at q
+    (B, H, S, hd), k, v (B, KV, S, hd), given the output's gradient
+    ``dout`` (B, H, S, hd) and the forward's ``lse`` (B, H, S) float32;
+    float32 or bfloat16 alike, any strides with the head dimension
+    contiguous. The gradients come in the input type, dq laid out
+    as a permuted (B, S, H, hd) tensor and dk, dv as permuted (B, S, KV,
+    hd) ones, the layout of the model's projections."""
+    global BWD_LAUNCHES
+    if q.dtype not in _BWD_DTYPES:
+        raise TypeError(f"flash_attention_bwd_cuda takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    _check_inputs(q, k, v, window, softcap, "flash_attention_bwd_cuda")
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"dout must be q's shape {tuple(q.shape)} and type "
+                         f"{q.dtype}, got {tuple(dout.shape)} {dout.dtype}")
+    b, h, s, hd = q.shape
+    kvh = k.shape[1]
+    dev = q.device
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32
+            or lse.device != dev or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 ({b}, {h}, {s}) "
+                         f"tensor on {dev}")
+    q, k, v, dout = (_rows(t) for t in (q, k, v, dout))
+    dq = torch.empty((b, s, h, hd), dtype=q.dtype,
+                     device=dev).permute(0, 2, 1, 3)
+    dk = torch.empty((b, s, kvh, hd), dtype=q.dtype,
+                     device=dev).permute(0, 2, 1, 3)
+    dv = torch.empty_like(dk)
+    if b == 0 or s == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    tensors = (q, k, v, dout, dq, dk, dv)
+    strides = (ctypes.c_int64 * 21)(*(st for t in tensors
+                                      for st in t.stride()[:3]))
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    err = lib.flash_attention_bwd(
+        _BWD_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, kvh, s, hd,
+        strides, hd ** -0.5, int(bool(causal)),
+        0 if window is None else int(window),
+        0.0 if softcap is None else float(softcap), dev.index,
+        _build.stream_of(q))
+    _build.check("flash_attention_bwd", "flash_attention_bwd", err)
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
 
 
 def cuda_tile_plan(q0: int, block_q: int, block_k: int, S: int, L: int,
@@ -168,4 +257,19 @@ def cuda_tile_plan(q0: int, block_q: int, block_k: int, S: int, L: int,
                             window or 0, starts, cap)
     if not 0 <= n <= cap:
         raise RuntimeError(f"flash_tile_plan gave {n} tiles (at most {cap})")
+    return list(starts[:n])
+
+
+def cuda_bwd_tile_plan(q0: int, tile: int, S: int, causal: bool,
+                       window: int | None) -> list[int]:
+    """The KV tiles the backward's dQ kernel visits for query rows ``[q0,
+    min(q0 + tile, S))`` (its ``make_plan``, run on the host): the index
+    form of :func:`tile_plan`. Builds the library, so it needs ``nvcc``."""
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    cap = -(-S // tile) + 1
+    starts = (ctypes.c_int * cap)()
+    n = lib.flash_bwd_tile_plan(q0, tile, S, int(bool(causal)), window or 0,
+                                starts, cap)
+    if not 0 <= n <= cap:
+        raise RuntimeError(f"flash_bwd_tile_plan gave {n} tiles")
     return list(starts[:n])

@@ -3,6 +3,13 @@
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the hand-written kernel, or raises if it cannot (no fallback). Any
 other device raises.
+
+``flash_attention`` (index form) and ``mamba_scan`` carry a gradient: on the
+CPU autograd runs through the plain versions, on the card through
+``torch.autograd.Function``s whose backward is a hand-written kernel
+(``flash_attention_bwd``, ``mamba_scan_bwd``), used only when a gradient is
+asked for; otherwise the forward kernel runs alone, as the serving path has
+it.
 """
 
 from __future__ import annotations
@@ -70,13 +77,65 @@ def dispatch_positions_levels(topk_idx: torch.Tensor, n_experts: int,
     return ref.dispatch_positions_levels_ref(topk_idx, n_experts, capacity)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The index form on the card: the forward kernel with its log-sum-exp,
+    the backward kernel for dq, dk, dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _flash.flash_attention_cuda(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            return_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.mask = (causal, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        dq, dk, dv = _flash.flash_attention_bwd_cuda(
+            q, k, v, dout.to(q.dtype), lse, causal=causal, window=window,
+            softcap=softcap)
+        return dq, dk, dv, None, None, None
+
+
+class _MambaScan(torch.autograd.Function):
+    """The selective scan on the card: the forward kernel, and the reverse
+    kernel for its gradients."""
+
+    @staticmethod
+    def forward(ctx, da, dbx):
+        h = _mamba.mamba_scan_cuda(da, dbx)
+        ctx.save_for_backward(da, h)
+        ctx.dtypes = (da.dtype, dbx.dtype)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        da, h = ctx.saved_tensors
+        gda, gdbx = _mamba.mamba_scan_bwd_cuda(da, h, g.float().contiguous())
+        return gda.to(ctx.dtypes[0]), gdbx.to(ctx.dtypes[1])
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     lengths=None):
     """Attention of q (B, H, S, hd) over k, v (B, KV, S, hd), output in
     ``q.dtype``: the index mask, or with ``lengths`` (B,) the mask of
     right-padded prompts of those real lengths, each in [1, S] (see
-    ``ref.flash_attention_ref``)."""
+    ``ref.flash_attention_ref``). The index form is differentiable; the
+    length form (prefill) raises when a gradient is asked for."""
+    grad = _wants_grad(q, k, v)
+    if grad and lengths is not None:
+        raise ValueError("flash_attention's length form is not "
+                         "differentiated (training runs the index form)")
     if _on_cuda(q):
+        if grad:
+            return _FlashAttention.apply(q, k, v, causal, window, softcap)
         return _flash.flash_attention_cuda(
             q, k, v, causal=causal, window=window, softcap=softcap,
             lengths=lengths)
@@ -86,23 +145,29 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
 
 def mamba_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
     """The selective scan ``h_t = da_t * h_{t-1} + dbx_t`` over axis 1 of
-    da, dbx (B, S, N, di), from h = 0; h in float32."""
+    da, dbx (B, S, N, di), from h = 0; h in float32; differentiable."""
     if _on_cuda(da):
+        if _wants_grad(da, dbx):
+            return _MambaScan.apply(da, dbx)
         return _mamba.mamba_scan_cuda(da, dbx)
     return ref.mamba_scan_ref(da, dbx)
 
 
 def launch_counts() -> dict[str, int]:
     """CUDA launches of each kernel in this process; ``flash_attention``
-    counts both flash kernels, ``flash_attention_tc`` the tensor-core
-    (bfloat16) one alone, ``dispatch_positions`` both position ops (one
-    launch a call), ``dispatch_work_prefix`` one a call (two launches)."""
+    counts both forward flash kernels, ``flash_attention_tc`` the
+    tensor-core (bfloat16) one alone, ``flash_attention_bwd`` and
+    ``mamba_scan_bwd`` the backward calls (two launches and one),
+    ``dispatch_positions`` both position ops (one launch a call),
+    ``dispatch_work_prefix`` one a call (two launches)."""
     return {"prefix_scan": _scan.LAUNCHES,
             "dispatch_work_prefix": _dispatch.LAUNCHES,
             "dispatch_positions": _dispatch.POSITION_LAUNCHES,
             "flash_attention": _flash.LAUNCHES,
             "flash_attention_tc": _flash.TC_LAUNCHES,
-            "mamba_scan": _mamba.LAUNCHES}
+            "flash_attention_bwd": _flash.BWD_LAUNCHES,
+            "mamba_scan": _mamba.LAUNCHES,
+            "mamba_scan_bwd": _mamba.BWD_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -111,4 +176,6 @@ def reset_launch_counts() -> None:
     _dispatch.POSITION_LAUNCHES = 0
     _flash.LAUNCHES = 0
     _flash.TC_LAUNCHES = 0
+    _flash.BWD_LAUNCHES = 0
     _mamba.LAUNCHES = 0
+    _mamba.BWD_LAUNCHES = 0

@@ -13,7 +13,8 @@ import torch
 __all__ = ["prefix_scan_ref", "dispatch_work_prefix_ref",
            "dispatch_positions_ref", "dispatch_positions_levels_ref",
            "check_lengths", "prefill_positions",
-           "flash_attention_ref", "mamba_scan_ref"]
+           "flash_attention_ref", "flash_attention_bwd_ref",
+           "mamba_scan_ref", "mamba_scan_bwd_ref"]
 
 _NEG = -2.0 ** 30  # the attention mask value, as in the JAX package
 
@@ -212,3 +213,32 @@ def mamba_scan_ref(da: torch.Tensor, dbx: torch.Tensor,
         h = torch.addcmul(dbx32[:, t], da32[:, t], h)
         out[:, t] = h
     return out
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, causal=True, window=None,
+                            softcap=None):
+    """(dq, dk, dv) of :func:`flash_attention_ref`'s index form at q, k, v
+    for the output gradient ``dout``, by autograd through the full
+    softmax; each in its input's type."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, window=window,
+                                  softcap=softcap)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def mamba_scan_bwd_ref(da: torch.Tensor, h: torch.Tensor, g: torch.Tensor):
+    """(dL/dda, dL/ddbx) float32 of ``h = mamba_scan_ref(da, dbx)`` (from h
+    = 0) given ``g = dL/dh``, all (B, S, N, di): the reverse loop
+    ``gh_t = g_t + da_{t+1} gh_{t+1}``, ``dL/ddbx_t = gh_t``, ``dL/dda_t =
+    gh_t h_{t-1}`` with ``h_{-1} = 0``, in the kernel's order."""
+    da32, h32, g32 = da.float(), h.float(), g.float()
+    gda = torch.empty_like(g32)
+    gdbx = torch.empty_like(g32)
+    carry = torch.zeros_like(g32[:, 0])
+    for t in range(da.shape[1] - 1, -1, -1):
+        gh = g32[:, t] + carry
+        gdbx[:, t] = gh
+        gda[:, t] = gh * h32[:, t - 1] if t else 0.0
+        carry = da32[:, t] * gh
+    return gda, gdbx

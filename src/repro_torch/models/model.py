@@ -10,17 +10,24 @@ The parameters live in ``nn.Module``s under the JAX package's keys
 ffn}``, ``final_norm``, ``unembed``), one module per stage where the JAX
 package stacks the stages on a leading axis for ``lax.scan``; the stage
 loop is a Python loop. The forward passes read a compute copy of the
-weights, made once per set of parameters: matrices in the compute dtype;
-the router, ``dt_proj`` (both run in float32), the norms and the SSM's
-vectors as stored (the JAX package casts at every call, with the same
-values). Inference runs without autograd; ``loss``, ``remat`` and the
-training path come with the training slice of the port.
+weights: matrices in the compute dtype; the router, ``dt_proj`` (both run
+in float32), the norms and the SSM's vectors as stored (the JAX package
+casts at every call, with the same values). Inference (``apply``,
+``prefill``, ``decode_step``) runs without autograd on a detached copy made
+once per set of parameter values (any in-place update, an optimizer step's
+included, makes a new one). ``loss`` is differentiable: it casts the live
+parameters on every call (the embedding table is gathered as stored and
+cast after, as the JAX package does), and with ``remat`` recomputes each
+stage in the backward pass (``torch.utils.checkpoint``) under the config's
+``remat_policy``: ``nothing`` keeps a stage's input alone, ``outputs`` also
+its mixer and FFN outputs (each sub-block checkpointed apart).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -61,19 +68,24 @@ def _zero_aux(device):
             "dropped": z.long()}
 
 
-def _compute_copy(tree: dict, dtype: torch.dtype) -> dict:
+def _compute_copy(tree: dict, dtype: torch.dtype, detach: bool) -> dict:
     """The parameter tree with every matrix and bias in ``dtype``, except
-    the router's and ``dt_proj``'s (both run in float32) and the norms'."""
+    the router's and ``dt_proj``'s (both run in float32) and the norms';
+    cut from autograd with ``detach``."""
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
             out[key] = (val if key in _FLOAT32_LAYERS
-                        else _compute_copy(val, dtype))
-        elif key in _COMPUTE_KEYS:
-            out[key] = val.detach().to(dtype)
+                        else _compute_copy(val, dtype, detach))
         else:
-            out[key] = val.detach()
+            leaf = val.detach() if detach else val
+            out[key] = leaf.to(dtype) if key in _COMPUTE_KEYS else leaf
     return out
+
+
+def _checkpointed(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class _Norm(nn.Module):
@@ -195,6 +207,7 @@ class LM(nn.Module):
             self.unembed = Dense(cfg.d_model, cfg.vocab_padded, dtype=dt,
                                  device=dev)
         self._weights = None
+        self._weights_key = None
 
     # ------------------------------------------------------------------
     # parameters
@@ -222,15 +235,28 @@ class LM(nn.Module):
         self._weights = None
         return super()._apply(fn, *args, **kwargs)
 
+    def _copy(self, detach: bool) -> dict:
+        tree = _compute_copy(param_tree(self), self.compute_dtype, detach)
+        tree["stages"] = [tree["stages"][str(i)]
+                          for i in range(self.n_stages)]
+        return tree
+
     def weights(self) -> dict:
-        """The compute copy of the parameters, as the JAX package's nested
-        dict (``stages`` a list of per-stage dicts)."""
-        if self._weights is None:
-            tree = _compute_copy(param_tree(self), self.compute_dtype)
-            tree["stages"] = [tree["stages"][str(i)]
-                              for i in range(self.n_stages)]
-            self._weights = tree
+        """The detached compute copy of the parameters, as the JAX package's
+        nested dict (``stages`` a list of per-stage dicts); remade when a
+        parameter has changed in place since (its version counter)."""
+        key = tuple(p._version for p in self.parameters())
+        if self._weights is None or key != self._weights_key:
+            self._weights = self._copy(detach=True)
+            self._weights_key = key
         return self._weights
+
+    def live_weights(self) -> dict:
+        """The compute copy cast from the live parameters, in autograd's
+        graph (made anew at each call); the embedding table as stored."""
+        tree = self._copy(detach=False)
+        tree["embed"] = {"w": self.embed.w}
+        return tree
 
     def stage_meta(self) -> list[bool]:
         """is_global per stage (gemma3: one global layer per
@@ -271,7 +297,7 @@ class LM(nn.Module):
 
     def _logits(self, w, x):
         if self.cfg.tie_embeddings:
-            logits = x @ w["embed"]["w"].T
+            logits = x @ w["embed"]["w"].to(self.compute_dtype).T
         else:
             logits = dense(w["unembed"], x, self.compute_dtype)
         return logits.float()
@@ -293,18 +319,27 @@ class LM(nn.Module):
         return [("attn", None, {"norm1": sp["norm1"], "mixer": sp["attn"],
                                 "norm2": sp["norm2"], "ffn": sp["ffn"]})]
 
-    def _stage(self, sp, x, mix, is_global, cache=None):
+    def _stage(self, sp, x, mix, is_global, cache=None, remat_parts=False):
         """One stage: per sub-layer ``x + mixer(norm1(x))``, then ``x +
         ffn(norm2(x))`` where it has an FFN. ``mix(kind, p, h, cache,
-        is_global)`` runs the mixer. Returns (x, aux)."""
+        is_global)`` runs the mixer. With ``remat_parts`` each mixer and FFN
+        block (norm included) is checkpointed apart, so the backward keeps
+        their outputs and recomputes their insides. Returns (x, aux)."""
         aux = _zero_aux(x.device)
         for kind, key, sub in self._sublayers(sp):
             c = cache if key is None or cache is None else cache[key]
-            x = x + mix(kind, sub["mixer"], self._norm(sub["norm1"], x), c,
-                        is_global)
+
+            def mixer(h, kind=kind, sub=sub, c=c):
+                return mix(kind, sub["mixer"], self._norm(sub["norm1"], h),
+                           c, is_global)
+
+            x = x + (_checkpointed(mixer, x) if remat_parts else mixer(x))
             if "ffn" in sub:
-                h, a = self._ffn_apply(sub["ffn"],
-                                       self._norm(sub["norm2"], x))
+                def ffn(h, sub=sub):
+                    return self._ffn_apply(sub["ffn"],
+                                           self._norm(sub["norm2"], h))
+
+                h, a = _checkpointed(ffn, x) if remat_parts else ffn(x)
                 x = x + h
                 aux = {k: aux[k] + a[k] for k in aux}
         return x, aux
@@ -317,8 +352,33 @@ class LM(nn.Module):
         """tokens: (B, S) -> (logits (B, S', V) float32, aux). With a
         modality prefix the sequence is [prefix; tokens] and logits cover
         token positions."""
+        return self._forward(self.weights(), tokens,
+                             prefix_embed=prefix_embed)
+
+    def loss(self, batch, *, remat=False):
+        """batch: {"tokens": (B, S), "labels": (B, S) with -1 = masked,
+        optional "prefix_embed"}, tensors or arrays. Returns (scalar loss,
+        metrics): the mean cross-entropy over unmasked labels (logits in
+        float32) plus 1e-2 x the MoE aux loss / n_layers, differentiable in
+        the parameters; metrics ``ce``, ``tokens`` and the aux counters."""
+        logits, aux = self._forward(self.live_weights(), batch["tokens"],
+                                    prefix_embed=batch.get("prefix_embed"),
+                                    remat=remat)
+        labels = self._as_long(batch["labels"])
+        mask = labels >= 0
+        safe = torch.where(mask, labels, 0)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+        nll = (logz - ll) * mask
+        n_tok = torch.clamp_min(mask.sum(), 1)
+        ce = nll.sum() / n_tok
+        total = ce + 1e-2 * aux["moe_aux_loss"] / max(self.cfg.n_layers, 1)
+        return total, {"ce": ce, "tokens": n_tok, **aux}
+
+    def _forward(self, w, tokens, *, prefix_embed=None, remat=False):
+        """The full-sequence forward over the weight copy ``w``; ``remat``
+        checkpoints each stage under ``cfg.remat_policy``."""
         cfg = self.cfg
-        w = self.weights()
         tokens = self._as_long(tokens)
         x = self._embed(w, tokens)
         n_prefix = 0
@@ -337,9 +397,16 @@ class LM(nn.Module):
                                   is_global=is_global)
             return ssm_train(p, h, cfg)
 
+        if remat and cfg.remat_policy not in ("nothing", "outputs"):
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        whole = remat and cfg.remat_policy == "nothing"
         aux = _zero_aux(self.device)
         for sp, is_global in zip(w["stages"], self.stage_meta()):
-            x, a = self._stage(sp, x, mix, is_global)
+            if whole:
+                x, a = _checkpointed(self._stage, sp, x, mix, is_global)
+            else:
+                x, a = self._stage(sp, x, mix, is_global,
+                                   remat_parts=remat)
             aux = {key: aux[key] + a[key] for key in aux}
         x = self._norm(w["final_norm"], x)
         if n_prefix:

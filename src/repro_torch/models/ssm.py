@@ -135,7 +135,8 @@ def _dt(p, xc):
 
 
 def _scan_inputs(p, xc, mask=None):
-    """(da, dbx, C): da, dbx (B, S, N, di) float32 in the kernel's layout.
+    """(da, dbx, C): da, dbx (B, S, N, di) float32 in the kernel's layout,
+    written in place without autograd, as out-of-place products with it.
     With ``mask`` (B, S) False on padding, dt is 0 there, so da = 1 and dbx
     = 0 exactly: the identity transition of the JAX package's prefill."""
     dt, b_mat, c_mat = _dt(p, xc)
@@ -144,6 +145,13 @@ def _scan_inputs(p, xc, mask=None):
     a = -torch.exp(p["A_log"]).T                        # (N, di)
     b, s, di = dt.shape
     dt4 = dt[:, :, None, :]
+    if torch.is_grad_enabled():     # training: the same products, in graph
+        # (a broadcast product may follow a transposed input's strides; the
+        # kernel takes the contiguous layout)
+        da = torch.exp(dt4 * a).contiguous()
+        dbx = (dt4 * b_mat.float()[..., None]
+               * xc.float()[:, :, None, :]).contiguous()
+        return da, dbx, c_mat
     da = torch.empty((b, s, a.shape[0], di), dtype=torch.float32,
                      device=dt.device)
     dbx = torch.empty_like(da)

@@ -491,3 +491,112 @@ def test_ssm_lm_on_card_matches_cpu(cuda, arch):
               if isinstance(c, dict) else list(c))
     for got, want in zip(leaves(c_card), leaves(c_host)):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# bfloat16 flash backward: each gradient row (over hd) within 3e-2 of the
+# plain version's in relative L2 norm and every element within 6e-2 (rtol
+# and atol); float32 within 1e-4 x each gradient's max|.|
+BWD_BF16_ROW_TOL = 3e-2
+BWD_BF16_TOL = 6e-2
+BWD_F32_TOL = 1e-4
+
+
+def _rows_checked(want):
+    """The rows the row bound reads: those whose norm is at least 1e-3 of
+    the largest (a query that sees only its own key has dq = 0 exactly; its
+    row is held by the element bound)."""
+    norms = want.float().norm(dim=-1)
+    return norms >= 1e-3 * norms.max()
+
+
+@pytest.mark.parametrize("b,h,kv,s,hd,dtype,window,softcap", [
+    (2, 4, 2, 130, 64, torch.bfloat16, None, None),
+    (1, 8, 4, 300, 128, torch.bfloat16, 100, None),
+    (2, 4, 2, 200, 64, torch.bfloat16, None, 30.0),
+    (2, 4, 2, 100, 64, torch.float32, None, None),
+    (2, 4, 2, 300, 64, torch.float32, 16, None),
+    (2, 4, 2, 300, 64, torch.float32, None, 30.0),
+    (1, 4, 2, 200, 256, torch.float32, 50, None),
+    (1, 4, 1, 70, 32, torch.float32, None, None)])
+def test_flash_backward_kernel_matches_plain(cuda, b, h, kv, s, hd, dtype,
+                                             window, softcap):
+    g = torch.Generator().manual_seed(s + hd)
+    q, do = (torch.randn(b, h, s, hd, generator=g).to(cuda, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, kv, s, hd, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    kw = dict(window=window, softcap=softcap)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = ops.launch_counts()
+    out = ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, do)
+    after = ops.launch_counts()
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        if dtype == torch.bfloat16:
+            rows = _rows_checked(w)
+            assert _row_rel_err(a[rows], w[rows]) <= BWD_BF16_ROW_TOL
+            torch.testing.assert_close(a.float(), w.float(),
+                                       rtol=BWD_BF16_TOL, atol=BWD_BF16_TOL)
+        else:
+            assert (a - w).abs().max().item() <= \
+                BWD_F32_TOL * w.abs().max().item()
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 37, 3, 36), torch.float32),
+                                         ((1, 100, 2, 64), torch.bfloat16),
+                                         ((1, 5, 2, 7), torch.float32),
+                                         ((1, 2048, 16, 512), torch.float32)])
+def test_mamba_backward_kernel_matches_plain(cuda, shape, dtype):
+    g = torch.Generator().manual_seed(shape[1])
+    da = torch.rand(shape, generator=g).to(cuda, dtype)
+    dbx = torch.randn(shape, generator=g).to(cuda, dtype)
+    go = torch.randn(shape, generator=g).to(cuda)
+    leaves = [da.clone().requires_grad_(True), dbx.clone().requires_grad_(
+        True)]
+    before = ops.launch_counts()["mamba_scan_bwd"]
+    h = ops.mamba_scan(*leaves)
+    got = torch.autograd.grad(h, leaves, go)
+    assert ops.launch_counts()["mamba_scan_bwd"] == before + 1
+    # the kernel sums in the plain version's order; a bfloat16 input gets
+    # its gradient rounded to bfloat16, as autograd rounds the plain one
+    want = [w.to(dtype).float() for w in ref.mamba_scan_bwd_ref(
+        da, h.detach(), go)]
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        assert (a.float() - w).abs().max().item() <= \
+            1e-5 * w.abs().max().item()
+
+
+def test_granite_two_layer_train_step_on_card(cuda):
+    """granite-moe-1b-a400m at full width, 2 layers, one train step with
+    remat on the card: the loss and gradient norm finite, the step's
+    launches the expected counts (2 flash forwards, 2 more in the remat
+    recompute, 2 backwards; 4 dispatch-positions calls), and the
+    parameters moved."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import init_state, make_train_step
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=2)
+    lm = LM(cfg, device=cuda)
+    opt = AdamW()
+    state = init_state(lm, opt, torch.Generator(device=cuda).manual_seed(0))
+    step = make_train_step(lm, opt, warmup_cosine(3e-3, 0, 10), remat=True)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 1024)).astype(np.int32)
+    before = lm.stages[0].attn.wq.w.detach().clone()
+    ops.reset_launch_counts()
+    state, m = step(state, {"tokens": tokens, "labels": tokens})
+    counts = ops.launch_counts()
+    assert np.isfinite(m["loss"].item()) and np.isfinite(
+        m["grad_norm"].item())
+    assert counts["flash_attention"] == counts["flash_attention_tc"] == 4
+    assert counts["flash_attention_bwd"] == 2
+    assert counts["dispatch_positions"] == 4
+    assert counts["mamba_scan"] == counts["prefix_scan"] == 0
+    assert not torch.equal(lm.stages[0].attn.wq.w.detach(), before)

@@ -23,6 +23,7 @@ print(json.dumps({
     "modules": names,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "repro")),
+    "msgpack": "msgpack" in sys.modules,
     "built": _build.BUILD_DIR.exists() and any(_build.BUILD_DIR.iterdir()),
     "libs": len(_build._LIBS),
 }))
@@ -89,6 +90,23 @@ def test_trace_graph_federation_modules_import_without_jax_or_repro(report):
                        "machines", "synth"),
             "federation": ("specs", "balancer", "runtime", "backend")
     }.items():
+        assert f"repro_torch.{sub}" in report["modules"]
+        for mod in mods:
+            assert f"repro_torch.{sub}.{mod}" in report["modules"]
+
+
+def test_training_modules_import_without_jax_repro_or_msgpack(report):
+    """The training slice: optimizer, train step and loop, checkpoints and
+    the training CLI. The checkpoint manifest is JSON: msgpack, which the
+    JAX package's checkpoints use, is not on the card's machine."""
+    assert report["foreign"] == []
+    assert report["msgpack"] is False
+    assert report["libs"] == 0
+    for sub, mods in {
+            "optim": ("adamw", "compress", "schedule"),
+            "train": ("state", "step", "loop"),
+            "checkpoint": ("ckpt",),
+            "launch": ("train",)}.items():
         assert f"repro_torch.{sub}" in report["modules"]
         for mod in mods:
             assert f"repro_torch.{sub}.{mod}" in report["modules"]
