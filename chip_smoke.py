@@ -154,15 +154,20 @@ Phases, each fatal on failure:
 14. training — the ninth slice's path:
     a. the backward kernels against their plain versions on the card:
        ``flash_attention_bwd`` (through ``ops.flash_attention``'s autograd,
-       one launch a call) at granite-moe-1b-a400m's training shape (B 4, H
-       16, KV 8, S 2048, hd 64, bf16, causal: each gradient row within 3e-2
-       in relative L2 norm over the rows whose norm is at least 1e-3 of the
-       largest, each element within 6e-2, rtol and atol) and at float32
-       edges (window 16, soft-cap 30, hd 128 and 256: 1e-4 x max), its own
-       tile rule against ``tile_plan``'s index form, a repeat equal to the
-       bit; ``mamba_scan_bwd`` at (1, 2048, 16, 8192) and edges (1e-5 x
-       max). Times beside the plain versions, the bounds and SDPA's
-       backward.
+       one call a check; every bf16 call on the tensor-core kernels, counted
+       in ``flash_attention_bwd_tc``, every float32 one on the FMA kernels)
+       at granite-moe-1b-a400m's training shape (B 4, H 16, KV 8, S 2048,
+       hd 64, bf16, causal: each gradient row within 3e-2 in relative L2
+       norm over the rows whose norm is at least 1e-3 of the largest, each
+       element within 6e-2, rtol and atol), at bf16 edges (S 1 and 65, hd
+       32, 128 and 256, window, soft-cap, non-causal) and float32 ones
+       (window 16, soft-cap 30, hd 128 and 256: 1e-4 x max); the kernels'
+       own tiles and walks (their rule, run on the host) against
+       ``bwd_tiles``, ``tile_plan``'s index form and ``bwd_key_plan``; a
+       repeat equal to the bit; ``mamba_scan_bwd`` at (1, 2048, 16, 8192)
+       and edges (1e-5 x max). Times beside the plain versions, the bounds
+       and SDPA's backward, and the float32 kernels at olmo-1b's (1, 4, 4,
+       200, 128).
     b. granite-train: granite-moe-1b-a400m at full width and depth (24
        layers, f32 params and moments, bf16 compute, weights from a CUDA
        generator seeded 0) trained 8 steps through ``repro_torch.train.
@@ -170,10 +175,12 @@ Phases, each fatal on failure:
        ``Pipeline`` of 2 shards x 2 rows x 2048 tokens. The counters are
        zeroed just before each step and read just after: 48 flash forwards
        (24 and 24 remat recomputes, all on the tensor cores), 24 flash
-       backwards, 48 dispatch-positions launches and none of the others.
+       backwards (all on the tensor cores), 48 dispatch-positions launches
+       and none of the others.
        Losses and gradient norms finite, the mean of the last 3 losses below
        the first; step time, tokens/s, peak memory, and one more step under
-       torch.profiler for the device's busy share.
+       torch.profiler for the device's busy share and the time of each
+       kernel, the backward's dQ and dK/dV kernels apart.
     c. falcon-train: falcon-mamba-7b at full width cut to 2 layers, 4 steps
        on 1 x 2048 tokens: finite losses, 4 scan forwards and 2 scan
        backwards a step.
@@ -430,8 +437,12 @@ def phase_build():
     log(f"[build] {len(report)} kernels in {time.perf_counter() - t0:.2f}s "
         f"(parallel nvcc)")
     for name, r in report.items():
-        info = [ln.strip() for ln in r["ptxas"].splitlines()
-                if "Used" in ln or "spill" in ln]
+        info, kernel = [], "?"
+        for ln in r["ptxas"].splitlines():
+            if "entry function" in ln:
+                kernel = ln.split("'")[1]
+            elif "Used" in ln or "spill" in ln:
+                info.append(f"{kernel}: {ln.strip()}")
         log(f"[build]   {name}: {r['seconds']:.2f}s {' | '.join(info)}")
 
 
@@ -593,7 +604,8 @@ def phase_sweep(base, cfg, powers, scale):
     if [r.backend for r in results] != ["batched"] * SEEDS:
         fail("the sweep did not auto-dispatch to the batched backend")
     # the serving and sweep paths launch no backward kernel
-    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+    want = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "mamba_scan_bwd": 0,
             "prefix_scan": 1 + cfg.n_slots,
             "dispatch_work_prefix": 1 + cfg.n_slots,
             "dispatch_positions": 0, "flash_attention": 0,
@@ -1033,7 +1045,8 @@ def phase_serve(dev):
     n_pre, n_dec = counted.calls["prefill"], counted.calls["decode"]
     n_moe = cfg.n_layers  # every granite layer is MoE
     # the serving and sweep paths launch no backward kernel
-    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+    want = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "mamba_scan_bwd": 0,
             "prefix_scan": 0, "dispatch_work_prefix": 0, "mamba_scan": 0,
             "flash_attention": cfg.n_layers * n_pre,
             "flash_attention_tc": cfg.n_layers * n_pre,
@@ -1307,7 +1320,8 @@ def phase_falcon_serve(dev):
     peak = torch.cuda.max_memory_allocated()
     n_pre, n_dec = counted.calls["prefill"], counted.calls["decode"]
     # the serving and sweep paths launch no backward kernel
-    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+    want = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "mamba_scan_bwd": 0,
             "prefix_scan": 0, "dispatch_work_prefix": 0,
             "dispatch_positions": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "mamba_scan": cfg.n_layers * n_pre}
@@ -1451,7 +1465,8 @@ def phase_hybrid_vs_plain(dev):
     periods = cfg.n_layers // cfg.attn_every
     n_moe = cfg.n_layers // cfg.moe_every
     # the serving and sweep paths launch no backward kernel
-    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+    want = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "mamba_scan_bwd": 0,
             "prefix_scan": 0, "dispatch_work_prefix": 0,
             "mamba_scan": cfg.n_layers - periods,
             "flash_attention": periods, "flash_attention_tc": 0,
@@ -1625,7 +1640,8 @@ def phase_trace_sweep(dev, smi: str):
             fail(f"trace: backend_options['ignored'] lacks {flag!r}: "
                  f"{ignored}")
     # the serving and sweep paths launch no backward kernel
-    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+    want = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "mamba_scan_bwd": 0,
             "prefix_scan": 1 + cfg.n_slots,
             "dispatch_work_prefix": 1 + cfg.n_slots,
             "dispatch_positions": 0, "flash_attention": 0,
@@ -1896,7 +1912,8 @@ def phase_cli_sweep(smi: str):
     launches = ops.launch_counts()
     T = int(round(scenario().workload.horizon))
     # the serving and sweep paths launch no backward kernel
-    want = {"flash_attention_bwd": 0, "mamba_scan_bwd": 0,
+    want = {"flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "mamba_scan_bwd": 0,
             "prefix_scan": 1 + T, "dispatch_work_prefix": 1 + T,
             "dispatch_positions": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "mamba_scan": 0}
@@ -2075,21 +2092,42 @@ SCAN_BWD_TOL = 1e-5
 
 
 def check_bwd_tile_plan():
-    """The backward's dQ tile rule (its make_plan, on the host) against
-    ``flash_attention.tile_plan``'s index form, over a grid of shapes."""
+    """The backward kernels' tiles (``flash_bwd_tiles``) against
+    ``flash_attention.bwd_tiles``, and their walks (make_plan for dQ,
+    key_walk for dK/dV, on the host) against ``tile_plan``'s index form and
+    ``bwd_key_plan``, for both types and every padded head width, over a
+    grid of shapes."""
     n = 0
-    for s in (1, 63, 64, 65, 129, 700, 2048):
-        for causal in (True, False):
-            for window in (None, 1, 16, 64, 100, 300):
-                for q0 in range(0, s, 64):
-                    got = flash.cuda_bwd_tile_plan(q0, 64, s, causal, window)
-                    want = flash.tile_plan(q0, 64, 64, s, s, causal, window)
-                    if got != want:
-                        fail(f"flash backward tile plan differs at "
-                             f"{(q0, s, causal, window)}: {got} != {want}")
-                    n += 1
-    log(f"[train-kernels] flash backward tile plan: tile_plan's tiles for "
-        f"all {n} query tiles of the grid")
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (64, 128, 256):
+            tiles = flash.cuda_bwd_tiles(dtype, hd)
+            bq, bk = flash.bwd_tiles(dtype, hd)
+            if tiles != (bq, bk):
+                fail(f"flash backward tiles at {dtype} hd {hd}: {tiles}, "
+                     f"not {(bq, bk)}")
+            log(f"[train-kernels] flash backward {str(dtype)[6:]} hd {hd}: "
+                f"tiles {tiles}")
+            for s in (1, 63, 64, 65, 129, 700, 2048):
+                for causal in (True, False):
+                    for window in (None, 1, 16, 64, 100, 300):
+                        case = (bq, bk, s, causal, window)
+                        for q0 in range(0, s, bq):
+                            got = flash.cuda_bwd_tile_plan(q0, *case)
+                            want = flash.tile_plan(q0, bq, bk, s, s, causal,
+                                                   window)
+                            if got != want:
+                                fail(f"flash backward dQ walk differs at "
+                                     f"{(q0, *case)}: {got} != {want}")
+                            n += 1
+                        for k0 in range(0, s, bk):
+                            got = flash.cuda_bwd_key_plan(k0, *case)
+                            want = flash.bwd_key_plan(k0, *case)
+                            if got != want:
+                                fail(f"flash backward dK/dV walk differs at "
+                                     f"{(k0, *case)}: {got} != {want}")
+                            n += 1
+    log(f"[train-kernels] flash backward walks: tile_plan's and "
+        f"bwd_key_plan's tiles for all {n} query and key tiles of the grid")
 
 
 def flash_bwd_check(label, b, h, kv, s, hd, dtype, g, dev, **kw):
@@ -2101,10 +2139,14 @@ def flash_bwd_check(label, b, h, kv, s, hd, dtype, g, dev, **kw):
     k, v = (torch.randn(b, kv, s, hd, generator=g).to(dev, dtype)
             for _ in range(2))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = ops.launch_counts()["flash_attention_bwd"]
+    before = ops.launch_counts()
     got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, do)
-    if ops.launch_counts()["flash_attention_bwd"] != before + 1:
-        fail(f"flash backward {label}: not one backward launch")
+    after = ops.launch_counts()
+    tc = after["flash_attention_bwd_tc"] - before["flash_attention_bwd_tc"]
+    if (after["flash_attention_bwd"] - before["flash_attention_bwd"],
+            tc) != (1, int(dtype == torch.bfloat16)):
+        fail(f"flash backward {label}: not one backward call, or {tc} on "
+             f"the tensor cores for {dtype}")
     want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
     torch.cuda.synchronize()
     worst, worst_row = 0.0, 0.0
@@ -2152,8 +2194,15 @@ def phase_kernels_bwd(dev, smi: str):
             ("hd 256 window", (1, 4, 2, 200, 256), f32, {"window": 50}),
             ("S=1", (2, 4, 2, 1, 64), bf16, {}),
             ("S=65", (2, 16, 8, 65, 64), bf16, {}),
+            ("window 16", (2, 4, 2, 300, 64), bf16, {"window": 16}),
+            ("soft-cap 30", (2, 4, 2, 200, 64), bf16, {"softcap": 30.0}),
+            ("non-causal", (2, 4, 2, 150, 64), bf16, {"causal": False}),
+            ("hd 32", (1, 4, 1, 70, 32), bf16, {}),
             ("window+soft-cap hd 128", (1, 8, 4, 300, 128), bf16,
-             {"window": 100, "softcap": 30.0})]:
+             {"window": 100, "softcap": 30.0}),
+            ("hd 256 window", (1, 4, 2, 200, 256), bf16, {"window": 50}),
+            ("hd 256 non-causal", (1, 4, 2, 129, 256), bf16,
+             {"causal": False})]:
         flash_bwd_check(label, *shape, dtype, g, dev, **extra)
     _, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
     first = flash.flash_attention_bwd_cuda(q, k, v, do, lse)
@@ -2161,7 +2210,7 @@ def phase_kernels_bwd(dev, smi: str):
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         fail("flash_attention_bwd: two calls on the same inputs differ")
     ms = time_ms(lambda: flash.flash_attention_bwd_cuda(q, k, v, do, lse),
-                 10)
+                 20)
     plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, do), 3)
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = torch.nn.functional.scaled_dot_product_attention(
@@ -2170,6 +2219,17 @@ def phase_kernels_bwd(dev, smi: str):
                                                  retain_graph=True), 10)
     fwd_ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v,
                                                         return_lse=True), 10)
+    f32_shape = (1, 4, 4, 200, 128)   # olmo-1b's float32 case (14d's path)
+    qf, dof = (torch.randn(*f32_shape[:2], *f32_shape[3:], generator=g).to(
+        dev) for _ in range(2))
+    kf, vf = (torch.randn(f32_shape[0], *f32_shape[2:], generator=g).to(dev)
+              for _ in range(2))
+    _, lsef = flash.flash_attention_cuda(qf, kf, vf, return_lse=True)
+    f32_ms = time_ms(
+        lambda: flash.flash_attention_bwd_cuda(qf, kf, vf, dof, lsef), 20)
+    f32_plain = time_ms(lambda: ref.flash_attention_bwd_ref(qf, kf, vf, dof),
+                        10)
+    del qf, dof, kf, vf, lsef
     b, h, s, hd = q.shape
     pairs = b * h * s * (s + 1) // 2
     # read q, k, v, dO and the LSE once, write dq, dk, dv: 5 products of
@@ -2182,7 +2242,11 @@ def phase_kernels_bwd(dev, smi: str):
         replaces="src/repro/models/attention.py:97", max_abs_err=worst,
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
         library_ms=lib_ms, shape=[b, h, k.shape[1], s, hd],
-        worst_row_err=worst_row, forward_with_lse_ms=fwd_ms)
+        worst_row_err=worst_row, forward_with_lse_ms=fwd_ms,
+        design="bf16: mma.sync m16n8k16 (ldmatrix, cp.async ring), dQ "
+               "(two walks: D = sum P dP, then dQ) then dK/dV per key tile, "
+               "GQA heads in order, no atomics; float32: FMA kernels",
+        f32_shape=list(f32_shape), f32_ms=f32_ms, f32_plain_ms=f32_plain)
     del q, k, v, do, lse, qs, ks, vs, o, first, again
 
     # -- mamba_scan_bwd at falcon-train's shape, and edges
@@ -2241,7 +2305,9 @@ def phase_kernels_bwd(dev, smi: str):
             f"({rec['bound_by']}) = {100 * rec['bound_ms'] / rec['ms']:.1f}%"
             f" of the bound ({smi})")
     log(f"[train-kernels] flash forward with LSE at the same shape "
-        f"{fwd_ms:.4f} ms; SDPA's backward {lib_ms:.4f} ms")
+        f"{fwd_ms:.4f} ms; SDPA's backward {lib_ms:.4f} ms; the float32 "
+        f"backward at {list(f32_shape)} {f32_ms:.4f} ms, plain "
+        f"{f32_plain:.4f} ms ({smi})")
     return [flash_bwd, scan_bwd]
 
 
@@ -2311,7 +2377,8 @@ def phase_granite_train(dev, smi: str):
         "granite-train", cfg, dev, smi, shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
         steps=TRAIN_STEPS,
         expected={"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
-                  "flash_attention_bwd": n, "dispatch_positions": 2 * n})
+                  "flash_attention_bwd": n, "flash_attention_bwd_tc": n,
+                  "dispatch_positions": 2 * n})
     first = hist[0]["loss"]
     last = sum(r["loss"] for r in hist[-3:]) / 3
     if not last < first:
@@ -2329,8 +2396,9 @@ def phase_granite_train(dev, smi: str):
     one_step()
     wall = time.perf_counter() - t0
     busy = device_time_table(one_step, wall, "granite-train-profile",
-                             watch=("flash_bwd", "flash_fwd",
-                                    "positions_levels"))
+                             watch=("flash_bwd_dq_tc", "flash_bwd_dkdv_tc",
+                                    "flash_fwd", "positions_levels",
+                                    "indexing_backward"))
     if busy is None:
         fail("granite-train: the profiled step recorded no device time")
     log(f"[granite-train] one step {wall * 1e3:.1f} ms, device busy "
@@ -2405,7 +2473,9 @@ def phase_train_vs_plain(dev):
     lc, gc = loss_grads(card, batch)
     counts = ops.launch_counts()
     if (counts["flash_attention"], counts["flash_attention_bwd"],
-            counts["flash_attention_tc"]) != (GRAD_LAYERS, GRAD_LAYERS, 0):
+            counts["flash_attention_tc"],
+            counts["flash_attention_bwd_tc"]) != (GRAD_LAYERS, GRAD_LAYERS,
+                                                  0, 0):
         fail(f"olmo grads: launches {counts}")
     lh, gh = loss_grads(host, batch)
     worst = grads_close("olmo grads", lc, gc, lh, gh)
@@ -2528,6 +2598,7 @@ def phase_train(smi: str, dev):
     torch.cuda.empty_cache()
     falcon = phase_falcon_train(dev, smi)
     records[0]["launches"] = granite["flash_attention_bwd"]
+    records[0]["tc_launches"] = granite["flash_attention_bwd_tc"]
     records[1]["launches"] = falcon["mamba_scan_bwd"]
     records[1]["falcon_train_launches"] = falcon["mamba_scan_bwd"]
     torch.cuda.empty_cache()

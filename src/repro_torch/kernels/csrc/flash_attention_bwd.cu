@@ -1,53 +1,92 @@
 // Flash attention backward on Hopper (sm_90a): dQ, dK and dV of the index
 // form of flash_attention.cu's forward (causal, optional sliding window,
-// optional tanh soft-cap c * tanh(x / c)), for float32 and bfloat16 inputs,
-// float32 accumulation, gradients in the input type.
+// optional tanh soft-cap c * tanh(x / c)), float32 accumulation, gradients
+// in the input type. Two pairs of kernels, picked by type:
+//
+//   flash_bwd_dq_tc, flash_bwd_dkdv_tc   bfloat16, on the tensor cores
+//                  (mma.sync m16n8k16 bf16 -> f32); the training path's.
+//   flash_bwd_dq, flash_bwd_dkdv         float32, float32 FMAs from shared
+//                  memory (TF32 products would keep ~3 digits, too few for
+//                  float32 callers).
 //
 // Replaces: the gradient that jax.grad takes of the JAX package's training
 // attention (src/repro/models/attention.py:97, chunked_attention); the TPU
 // kernel src/repro/kernels/flash_attention.py:93 (flash_attention_pallas)
-// has no backward. A FlashAttention-2 split in two launches:
-//
-//   flash_bwd_dq     one block per (batch, head, query tile), walking the
-//                    KV tiles of the forward's tile plan (make_plan) twice:
-//                    first for D[i] = sum_j P[i, j] dP[i, j], which it also
-//                    writes out, then for dQ.
-//   flash_bwd_dkdv   one block per (batch, KV head, key tile). It keeps its
-//                    K and V tile in shared memory and dK, dV in registers,
-//                    and walks every query tile that sees the key tile, for
-//                    each of the H / KV query heads of its group in turn. So
-//                    the GQA sum over query heads needs no atomics and has a
-//                    fixed order: the result does not depend on timing.
+// has no backward. A FlashAttention-2 split in two launches on one stream:
+// a dQ kernel, one block per (batch, head, query tile), then a dK/dV kernel,
+// one block per (batch, KV head, key tile), which keeps its K and V tile and
+// its dK, dV and walks every query tile that sees its key tile, for each of
+// the H / KV query heads of its group in turn. So the GQA sum over query
+// heads needs no atomics and has a fixed order: two calls give the same
+// bits, and a resumed training run replays the first.
 //
 // Both recompute P = exp(logit - LSE) from q, k and the forward's per-row
-// log-sum-exp (flash_attention.cu writes it when asked), under the forward's
-// mask: a masked logit gives P = 0 exactly, as the reference's
+// natural log-sum-exp (flash_attention.cu writes it when asked), under the
+// forward's mask: a masked logit gives P = 0 exactly, as the reference's
 // where(mask, logits, -2^30) does. With dP = dO V^T, dS = P (dP - D) times
 // (1 - tanh^2) under a soft-cap, times the scale; then dV = P^T dO,
 // dK = dS^T Q, dQ = dS K. D is the softmax backward's sum_j P dP, taken in
-// float32 as autograd takes it from the reference, not rowsum(dO * O) of the
-// forward's output: that output is rounded to bf16, and where dP - D cancels
-// (a query that sees few keys) its rounding puts whole rows of dQ off (0.19
-// relative on the worst row at the training shape). The extra pass costs two
-// of the nine products a pair. Query tile t visits key tile u in the dQ kernel iff
-// u is in make_plan(t); the dK/dV kernel walks exactly the query tiles whose
-// plan holds its key tile, so both skip the tiles the forward skips.
-//
-// Design: float32 FMAs from shared memory for both types (bf16 is widened as
-// it is loaded). A 16 x 16 thread grid owns a TILE x TILE block of logits,
-// each thread TILE / 16 rows by TILE / 16 columns, interleaved by 16;
-// tiles are row-major with an odd pitch (HD + 1 floats), so the 16 threads
-// that read 16 different rows at one column hit 16 different banks. TILE is
-// 64 keys and 64 queries for head widths up to 128 and 32 for 256 (shared
-// memory: 100 KB, 166 KB and 140 KB a block).
+// float32 from the float32 products, as autograd takes it from the
+// reference, not rowsum(dO * O) of the forward's output: that output is
+// rounded to bf16, and where dP - D cancels (a query that sees few keys)
+// its rounding puts whole rows of dQ off (0.19 relative on the worst row at
+// the training shape). The dQ kernel walks its key tiles twice, first for D
+// (which it writes for the dK/dV kernel), then for dQ: S and dP are formed
+// three times, 9 products of 2 * hd flops a visible pair where 5 would do.
+// Query tile t visits key tile u iff u is in make_plan(t); the dK/dV kernel
+// walks exactly the query tiles whose plan holds its key tile (key_walk),
+// so both skip the tiles the forward skips.
 //
 // Bound: at granite-moe-1b-a400m's training shape (B 4, H 16, KV 8, S 2048,
-// hd 64, bf16, causal) the backward does 5 products of 2 * hd flops per
-// visible (query, key) pair (S, dP, dV, dK, dQ), ~86 GFLOP: 0.087 ms at the
-// 989 TFLOP/s bf16 tensor-core rate, so operations bound it. This design
-// recomputes S and dP in both kernels and twice in the dQ kernel (9 products
-// a pair) on the float32 FMA units (67 TFLOP/s); moving it onto the tensor
-// cores (mma.sync or wgmma, as the forward) is the redesign it waits for.
+// hd 64, bf16, causal) the 5 products take ~86 GFLOP: 0.087 ms at the 989
+// TFLOP/s bf16 tensor-core rate, against ~84 MB of q, k, v, dO, the LSE and
+// dq, dk, dv at 3.35 TB/s (0.025 ms); operations bound it. The 9 products
+// this design does take 0.156 ms at that rate.
+//
+// The bf16 kernels (tc::): 16 rows of the block's fixed side (queries for
+// dQ, keys for dK/dV) a warp, 64-row tiles at hd 64 and 128, 32-query tiles
+// at hd 256 (Tune<HD>; hd below a width is zero-filled up to it). The fixed
+// side (Q and dO, or K and V) is copied once by cp.async and read by
+// ldmatrix as the mma's A fragments (kept in registers by the dQ kernel at
+// hd 64); the walked side goes through a double-buffered cp.async ring,
+// tile t + 1 in flight while tile t is computed, with bf16 rows padded by 16
+// bytes so that the 8 rows one ldmatrix reads fall in 8 bank groups. A warp
+// takes the walked tile in kSub sub-tiles. The fragments are the forward's:
+//   dQ kernel    S = Q K^T and dP = dO V^T take K and V by ldmatrix as the
+//                B ("col") operand; dS goes from the f32 accumulators
+//                straight into bf16 A fragments (two n8 accumulators make
+//                one k16 fragment) and dQ += dS K reads K by
+//                ldmatrix.trans, as the forward reads V.
+//   dK/dV kernel S^T = K Q^T and dP^T = V dO^T read Q and dO as the B
+//                operand; P^T and dS^T become A fragments; dV += P^T dO and
+//                dK += dS^T Q read dO and Q by ldmatrix.trans. A thread's
+//                accumulator rows are keys and its columns queries, so the
+//                LSE and D of the query tile (copied with it) go by column.
+// P and dS are formed in float32 and rounded to bf16 only as mma operands.
+// P takes exp2 with log2(e) folded into one FFMA. Masks are tested only on
+// tiles that touch an edge (the diagonal, the window's edge, S). Wider heads
+// split a row group's output columns over 2 warps (kColQ, kColKV), each
+// forming the group's S and dP itself, so that the accumulators fit the
+// registers (at hd 256 the dK and dV of 16 keys alone are 256 registers a
+// thread). The grids rank blocks longest first: the last query tile, and
+// key tile 0, see the most tiles under causality.
+//
+// ptxas (nvcc 12.9, sm_90a), threads and dynamic shared bytes a block:
+//   hd 64    dq_tc 128 registers (cap: 4 blocks an SM), 72 / 212 bytes of
+//            spill stores / loads, 128 threads, 55,296 B; dkdv_tc 128
+//            registers, 100 / 88 bytes spilled, 128 threads, 56,320 B
+//   hd 128   dq_tc 248 registers, 128 threads, 104,448 B; dkdv_tc 221,
+//            256 threads, 105,472 B; no spills
+//   hd 256   dq_tc 244 registers, 128 threads, 168,960 B; dkdv_tc 241,
+//            256 threads, 135,680 B; no spills
+//
+// The float32 kernels: a 16 x 16 thread grid owns a TILE x TILE block of
+// logits, each thread TILE / 16 rows by TILE / 16 columns, interleaved by
+// 16; tiles are row-major with an odd pitch (HD + 1 floats), so the 16
+// threads that read 16 different rows at one column hit 16 different banks.
+// TILE is 64 for head widths up to 128 and 32 for 256 (shared memory: 100
+// KB, 166 KB and 140 KB a block). The dQ kernel walks its KV tiles twice,
+// once for D.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,7 +107,7 @@ struct Args {
   const void* v;
   const void* dout;
   const float* lse;  // (B, H, S) contiguous
-  float* delta;      // (B, H, S) contiguous: D, written by flash_bwd_dq
+  float* delta;      // (B, H, S) contiguous: D, written by the dQ kernel
   void* dq;
   void* dk;
   void* dv;
@@ -98,20 +137,40 @@ __host__ __device__ __forceinline__ Plan make_plan(int q0, int bq, int bk,
   return {first, imax(0, last - first)};
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// The dK/dV kernel's walk: the query tiles (of bq rows) whose plan holds the
+// key tile at k0, a run [first, first + n) (a plan's first and last tiles
+// never decrease from one query tile to the next). Under causality no query
+// tile before k0 / bq reaches key k0.
+struct Walk {
+  int first, n;
+};
+
+__host__ __device__ __forceinline__ Walk key_walk(int k0, int bq, int bk,
+                                                  int S, bool causal,
+                                                  int window) {
+  const int kt = k0 / bk;
+  const int n_qt = (S + bq - 1) / bq;
+  int first = -1, n = 0;
+  for (int qt = causal ? k0 / bq : 0; qt < n_qt; ++qt) {
+    const Plan plan = make_plan(qt * bq, bq, bk, S, causal, window);
+    if (kt < plan.first) break;  // later query tiles start later still
+    if (kt >= plan.first + plan.n) {
+      if (first >= 0) break;
+      continue;
+    }
+    if (first < 0) first = qt;
+    ++n;
+  }
+  return {first < 0 ? 0 : first, n};
 }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Rows [0, rows) x columns [0, hd) of a (row stride `ld`) tile into a
@@ -510,12 +569,605 @@ cudaError_t launch(const Args& a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(const Args& a, int device, cudaStream_t stream) {
-  if (a.hd <= 64) return launch<T, 64, 64>(a, device, stream);
-  if (a.hd <= 128) return launch<T, 128, 64>(a, device, stream);
-  return launch<T, 256, 32>(a, device, stream);
+// The float32 kernels' tiles: 64 queries and 64 keys, 32 at HD = 256.
+constexpr int fma_tile(int hd) { return hd <= 128 ? 64 : 32; }
+
+cudaError_t launch_fma(const Args& a, int device, cudaStream_t stream) {
+  if (a.hd <= 64) return launch<float, 64, fma_tile(64)>(a, device, stream);
+  if (a.hd <= 128)
+    return launch<float, 128, fma_tile(128)>(a, device, stream);
+  return launch<float, 256, fma_tile(256)>(a, device, stream);
 }
+
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (mma.sync m16n8k16 bf16 -> f32), cp.async ring
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The tile plan by head width, for both kernels: query tiles of kBQ rows,
+// key tiles of kBK. A dQ block owns one query tile (kBQ / 16 row groups of
+// 16 queries) and walks key tiles; a dK/dV block owns one key tile (kBK / 16
+// row groups) and walks query tiles. kColQ / kColKV warps share a row group,
+// each owning HD / kCol of the output columns and computing the group's S
+// and dP itself (the dK and dV accumulators take HD / kCol registers a
+// thread each). A warp takes the walked tile in kSub sub-tiles, so that the
+// logit and dP accumulators of one sub-tile alone are live (32 registers a
+// thread at 64 columns). kRegsQ keeps the dQ kernel's A fragments (Q and
+// dO) in registers; the dK/dV kernel re-reads K and V from shared memory.
+// kMinBlocks is the blocks an SM should hold (__launch_bounds__, hence a
+// register cap). At hd 64 (measured on the card at granite-train's shape)
+// a cap of 128 registers (4 blocks, 16 warps an SM) spills a little and
+// ran 1.24 -> 0.90 ms against no cap; K and V in registers ran the dK/dV
+// kernel 12% slower, Q and dO in shared memory the dQ kernel 5% slower, and
+// tiles of 128 queries or keys (8 warps, the same cap) no faster.
+template <int HD>
+struct Tune;
+template <>
+struct Tune<64> {
+  static constexpr int kBQ = 64, kBK = 64, kColQ = 1, kColKV = 1;
+  static constexpr bool kRegsQ = true;
+  static constexpr int kSub = 2, kMinBlocks = 4;
+};
+template <>
+struct Tune<128> {
+  static constexpr int kBQ = 64, kBK = 64, kColQ = 1, kColKV = 2;
+  static constexpr bool kRegsQ = false;
+  static constexpr int kSub = 1, kMinBlocks = 1;
+};
+template <>
+struct Tune<256> {
+  static constexpr int kBQ = 32, kBK = 64, kColQ = 2, kColKV = 2;
+  static constexpr bool kRegsQ = false;
+  static constexpr int kSub = 1, kMinBlocks = 1;
+};
+
+// Threads and shared bytes of one kernel: kFixed rows held for the whole
+// block, a double-buffered ring of kWalk-row tiles, bf16 rows padded by 16
+// bytes (ldmatrix without bank conflicts; cp.async's 16-byte stores stay
+// aligned), and kRowFloats float32 values beside them.
+template <int HD, int kFixedRows, int kWalkRows, int kCol, int kRowFloats>
+struct Shape {
+  static constexpr int kLd = HD + 8;
+  static constexpr int kThreads = 32 * (kFixedRows / 16) * kCol;
+  static constexpr int kFixed = kFixedRows * kLd;
+  static constexpr int kTile = kWalkRows * kLd;
+  static constexpr int kSmem = (2 * kFixed + 4 * kTile) * 2 + kRowFloats * 4;
+};
+// dQ: Q and dO fixed, K and V walked
+template <int HD>
+using QShape = Shape<HD, Tune<HD>::kBQ, Tune<HD>::kBK, Tune<HD>::kColQ, 0>;
+// dK/dV: K and V fixed, Q and dO walked with their rows' LSE and D
+template <int HD>
+using KvShape =
+    Shape<HD, Tune<HD>::kBK, Tune<HD>::kBQ, Tune<HD>::kColKV,
+          4 * Tune<HD>::kBQ>;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid (nothing read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, or 4 zero bytes when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Rows [0, rows_valid) x columns [0, hd) of a row-major bf16 tile (row
+// stride `ld`) into a kRows x HD shared tile of pitch HD + 8, zero
+// elsewhere, by cp.async: consecutive threads copy consecutive 16-byte
+// pieces of a row.
+template <int HD, int kRows, int kThreads>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          int64_t ld, int rows_valid,
+                                          int hd) {
+  constexpr int kChunks = HD / 8;
+  for (int u = threadIdx.x; u < kRows * kChunks; u += kThreads) {
+    const int r = u / kChunks;
+    const int c = (u % kChunks) * 8;
+    const bool ok = r < rows_valid && c < hd;
+    cp_async16(dst + r * (HD + 8) + c, ok ? src + r * ld + c : src, ok);
+  }
+}
+
+// The 16 x HD A fragments of rows [r0, r0 + 16) of a shared tile
+// (ldmatrix lane l: row l % 16, columns (l / 16) * 8 of each 16-column
+// slice), kept in registers or re-read each time.
+template <int HD, bool kInRegs>
+struct AFrags {
+  unsigned f[kInRegs ? HD / 16 : 1][4];
+  const bf16* p;
+  __device__ __forceinline__ void init(const bf16* tile, int r0, int lane) {
+    p = tile + (r0 + (lane & 15)) * (HD + 8) + (lane >> 4) * 8;
+    if constexpr (kInRegs) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(f[kk], p + kk * 16);
+    }
+  }
+  __device__ __forceinline__ void get(unsigned (&a)[4], int kk) const {
+    if constexpr (kInRegs) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = f[kk][i];
+    } else {
+      ldmatrix_x4(a, p + kk * 16);
+    }
+  }
+};
+
+// x = A X^T and y = B Y^T for a warp's 16 rows of A, B (fragments) against
+// the kN * 8 rows of the shared tiles X, Y (pitch HD + 8): X's rows are the
+// n index, so a non-transposed ldmatrix of an 8 x 8 (row, dim) block is the
+// B fragment, and x4 gives two n8 tiles' k16 halves.
+template <int HD, int kN, bool kInRegs>
+__device__ __forceinline__ void two_products(
+    const AFrags<HD, kInRegs>& A, const AFrags<HD, kInRegs>& B,
+    const bf16* X, const bf16* Y, int lane, float (&x)[kN][4],
+    float (&y)[kN][4]) {
+  constexpr int kLd = HD + 8;
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[n][c] = y[n][c] = 0.0f;
+  const int off =
+      (((lane >> 4) << 3) + (lane & 7)) * kLd + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    unsigned a[4], b[4];
+    A.get(a, kk);
+    B.get(b, kk);
+#pragma unroll
+    for (int np = 0; np < kN / 2; ++np) {
+      unsigned bx[4], by[4];
+      ldmatrix_x4(bx, X + off + np * 16 * kLd + kk * 16);
+      mma(x[2 * np], a, bx[0], bx[1]);
+      mma(x[2 * np + 1], a, bx[2], bx[3]);
+      ldmatrix_x4(by, Y + off + np * 16 * kLd + kk * 16);
+      mma(y[2 * np], b, by[0], by[1]);
+      mma(y[2 * np + 1], b, by[2], by[3]);
+    }
+  }
+}
+
+// acc (16 x kD * 8) += P (16 x kK * 8, f32 accumulators, rounded to bf16 as
+// the A operand: the accumulators of n8 tiles 2kk and 2kk + 1 are the A
+// fragment of slice kk) times columns [c0, c0 + kD * 8) of the shared tile
+// X (kK * 8 rows, pitch HD + 8), read by ldmatrix.trans (lane l: row l % 16,
+// columns (l / 16) * 8), which gives the B fragments of two n8 tiles.
+template <int HD, int kK, int kD>
+__device__ __forceinline__ void product_acc(const float (&p)[kK][4],
+                                            const bf16* X, int c0, int lane,
+                                            float (&acc)[kD][4]) {
+  constexpr int kLd = HD + 8;
+  const bf16* xf = X + (lane & 15) * kLd + (lane >> 4) * 8 + c0;
+#pragma unroll
+  for (int kk = 0; kk < kK / 2; ++kk) {
+    const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < kD / 2; ++dp) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, xf + kk * 16 * kLd + dp * 16);
+      mma(acc[2 * dp], a, b[0], b[1]);
+      mma(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// P and dS (in units of q.k) of query i and key j from the raw products
+// qk = q_i . k_j and dp = dO_i . v_j, with lse2 = LSE_i * log2(e); ok:
+// the mask admits the pair. P = exp(logit - LSE) as exp2 with log2(e) in
+// one FFMA; a masked pair gives P = dS = 0 exactly.
+__device__ __forceinline__ void pair_tc(float qk, float dp, float lse2,
+                                        float delta, bool ok, const Args& a,
+                                        float& p, float& ds) {
+  float d;
+  if (a.softcap > 0.0f) {
+    const float t = tanhf(qk * (a.scale / a.softcap));
+    p = ok ? ex2(fmaf(a.softcap * kLog2e, t, -lse2)) : 0.0f;
+    d = p * (dp - delta) * (1.0f - t * t);
+  } else {
+    p = ok ? ex2(fmaf(qk, a.scale * kLog2e, -lse2)) : 0.0f;
+    d = p * (dp - delta);
+  }
+  ds = d * a.scale;
+}
+
+// Whether the mask admits every pair of query rows [q0, q0 + bq) and keys
+// [k0, k0 + bk): then no pair of the tile needs its test.
+__device__ __forceinline__ bool tile_full(int q0, int bq, int k0, int bk,
+                                          const Args& a) {
+  return q0 + bq <= a.S && k0 + bk <= a.S &&
+         (!a.causal || k0 + bk - 1 <= q0) &&
+         (a.window <= 0 || q0 + bq - 1 - k0 < a.window);
+}
+
+__device__ __forceinline__ bool admits(int i, int j, const Args& a) {
+  bool ok = i < a.S && j < a.S;
+  if (a.causal) ok = ok && i >= j;
+  if (a.window > 0) ok = ok && i - j < a.window;
+  return ok;
+}
+
+// dQ (and D = sum_j P dP, written to a.delta): one block per (batch, head,
+// query tile), the longest tiles (the last, under causality) first. It
+// walks its plan's key tiles twice, first for D, then for dQ.
+template <int HD>
+__global__ void __launch_bounds__(QShape<HD>::kThreads, Tune<HD>::kMinBlocks)
+flash_bwd_dq_tc(Args a) {
+  using Tn = Tune<HD>;
+  using Sh = QShape<HD>;
+  constexpr int kBQ = Tn::kBQ, kBK = Tn::kBK;
+  constexpr int kLd = HD + 8;
+  constexpr int kN = kBK / 8 / Tn::kSub;   // n8 tiles of a logit sub-tile
+  constexpr int kD = HD / Tn::kColQ / 8;   // n8 tiles of the warp's dQ
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);  // [kBQ][kLd]
+  bf16* Gs = Qs + Sh::kFixed;                   // [kBQ][kLd] dO
+  bf16* Ks = Gs + Sh::kFixed;                   // [2][kBK][kLd]
+  bf16* Vs = Ks + 2 * Sh::kTile;                // [2][kBK][kLd]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;   // row within the warp's 8-row halves
+  const int tig = lane & 3;  // thread in the quad that shares a row
+  const int rg = warp / Tn::kColQ;               // the warp's 16 queries
+  const int c0 = (warp % Tn::kColQ) * (HD / Tn::kColQ);  // its dQ columns
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x % a.H;
+  const int kvh = h / (a.H / a.KV);
+  const int S = a.S;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const Plan plan = make_plan(q0, kBQ, kBK, S, a.causal != 0, a.window);
+  const int n_steps = 2 * plan.n;  // pass 0: D; pass 1: dQ
+
+  const bf16* kbase = static_cast<const bf16*>(a.k) + b * a.sk.b +
+                      kvh * a.sk.h;
+  const bf16* vbase = static_cast<const bf16*>(a.v) + b * a.sv.b +
+                      kvh * a.sv.h;
+  auto prefetch = [&](int t) {
+    const int k0 = (plan.first + t % plan.n) * kBK;
+    const int rows = imin(kBK, S - k0);
+    load_rows<HD, kBK, Sh::kThreads>(Ks + (t & 1) * Sh::kTile,
+                                     kbase + k0 * a.sk.s, a.sk.s, rows, a.hd);
+    load_rows<HD, kBK, Sh::kThreads>(Vs + (t & 1) * Sh::kTile,
+                                     vbase + k0 * a.sv.s, a.sv.s, rows, a.hd);
+  };
+  const int q_rows = imin(kBQ, S - q0);
+  load_rows<HD, kBQ, Sh::kThreads>(
+      Qs, static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h +
+              q0 * a.sq.s,
+      a.sq.s, q_rows, a.hd);
+  load_rows<HD, kBQ, Sh::kThreads>(
+      Gs, static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h +
+              q0 * a.sdo.s,
+      a.sdo.s, q_rows, a.hd);
+  if (n_steps > 0) prefetch(0);
+  cp_async_commit();
+
+  // the thread's rows rg * 16 + g + 8 * hh: LSE (times log2 e) and D
+  const int64_t row0 = (static_cast<int64_t>(b) * a.H + h) * S + q0;
+  float lse2[2], dsum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rg * 16 + g + 8 * hh;
+    lse2[hh] = r < q_rows ? a.lse[row0 + r] * kLog2e : 0.0f;
+  }
+  float dq[kD][4];
+#pragma unroll
+  for (int d = 0; d < kD; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[d][c] = 0.0f;
+  AFrags<HD, Tn::kRegsQ> qa, ga;
+
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t == 0) {
+      qa.init(Qs, rg * 16, lane);
+      ga.init(Gs, rg * 16, lane);
+    }
+    if (t + 1 < n_steps) prefetch(t + 1);
+    cp_async_commit();
+
+    const int k0 = (plan.first + t % plan.n) * kBK;
+    const bf16* Kt = Ks + (t & 1) * Sh::kTile;
+    const bf16* Vt = Vs + (t & 1) * Sh::kTile;
+    const bool full = tile_full(q0, kBQ, k0, kBK, a);
+    const bool second = t >= plan.n;
+#pragma unroll
+    for (int sub = 0; sub < Tn::kSub; ++sub) {
+      const int j0 = sub * kN * 8;  // the sub-tile's first key
+      // S = Q K^T, dP = dO V^T; s[n][c] is query rg * 16 + g + 8 * (c >> 1),
+      // key j0 + n * 8 + 2 * tig + (c & 1) of the tiles
+      float s[kN][4], dp[kN][4];
+      two_products<HD, kN>(qa, ga, Kt + j0 * kLd, Vt + j0 * kLd, lane, s, dp);
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int hh = c >> 1;
+          const bool ok =
+              full || admits(q0 + rg * 16 + g + 8 * hh,
+                             k0 + j0 + n * 8 + 2 * tig + (c & 1), a);
+          float p, ds;
+          pair_tc(s[n][c], dp[n][c], lse2[hh], second ? dsum[hh] : 0.0f, ok,
+                  a, p, ds);
+          if (!second) dsum[hh] = fmaf(p, dp[n][c], dsum[hh]);
+          s[n][c] = ds;
+        }
+      // dQ += dS K over the sub-tile's keys
+      if (second) product_acc<HD, kN, kD>(s, Kt + j0 * kLd, c0, lane, dq);
+    }
+    if (t == plan.n - 1) {
+      // D of the thread's rows: the quad's 4 threads hold a row's keys
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        dsum[hh] += __shfl_xor_sync(0xffffffffu, dsum[hh], 1);
+        dsum[hh] += __shfl_xor_sync(0xffffffffu, dsum[hh], 2);
+        const int r = rg * 16 + g + 8 * hh;
+        if (tig == 0 && c0 == 0 && r < q_rows) a.delta[row0 + r] = dsum[hh];
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  bf16* dq_out = static_cast<bf16*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rg * 16 + g + 8 * hh;
+    if (r >= q_rows) continue;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      const int col = c0 + d * 8 + 2 * tig;
+      if (col < a.hd)
+        *reinterpret_cast<__nv_bfloat162*>(dq_out + (q0 + r) * a.sdq.s +
+                                           col) =
+            __floats2bfloat162_rn(dq[d][2 * hh], dq[d][2 * hh + 1]);
+    }
+  }
+}
+
+// dK and dV: one block per (batch, KV head, key tile), key tile 0 (under
+// causality the one most query tiles see) first. It walks the query tiles
+// whose plan holds its key tile (key_walk) and, for each, the H / KV query
+// heads of its group in order: a fixed order, no atomics.
+template <int HD>
+__global__ void __launch_bounds__(KvShape<HD>::kThreads, Tune<HD>::kMinBlocks)
+flash_bwd_dkdv_tc(Args a) {
+  using Tn = Tune<HD>;
+  using Sh = KvShape<HD>;
+  constexpr int kBQ = Tn::kBQ, kBK = Tn::kBK;
+  constexpr int kLd = HD + 8;
+  constexpr int kN = kBQ / 8 / Tn::kSub;   // n8 tiles of an S^T sub-tile
+  constexpr int kD = HD / Tn::kColKV / 8;  // n8 tiles of the warp's dK, dV
+  extern __shared__ uint4 smem_u4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_u4);  // [kBK][kLd]
+  bf16* Vs = Ks + Sh::kFixed;                   // [kBK][kLd]
+  bf16* Qs = Vs + Sh::kFixed;                   // [2][kBQ][kLd]
+  bf16* Gs = Qs + 2 * Sh::kTile;                // [2][kBQ][kLd] dO
+  float* lse_s = reinterpret_cast<float*>(Gs + 2 * Sh::kTile);  // [2][kBQ]
+  float* del_s = lse_s + 2 * kBQ;                               // [2][kBQ]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int rg = warp / Tn::kColKV;                        // its 16 keys
+  const int c0 = (warp % Tn::kColKV) * (HD / Tn::kColKV);  // its columns
+  const int b = blockIdx.x / a.KV;
+  const int kvh = blockIdx.x % a.KV;
+  const int k0 = blockIdx.y * kBK;
+  const int rep = a.H / a.KV;
+  const int S = a.S;
+  const Walk walk = key_walk(k0, kBQ, kBK, S, a.causal != 0, a.window);
+  const int n_steps = walk.n * rep;  // step t: query tile t / rep, head t % rep
+
+  const bf16* qbase = static_cast<const bf16*>(a.q) + b * a.sq.b;
+  const bf16* gbase = static_cast<const bf16*>(a.dout) + b * a.sdo.b;
+  const int64_t rows_b = static_cast<int64_t>(b) * a.H * S;
+  auto prefetch = [&](int t) {
+    const int q0 = (walk.first + t / rep) * kBQ;
+    const int h = kvh * rep + t % rep;
+    const int rows = imin(kBQ, S - q0);
+    const int buf = t & 1;
+    load_rows<HD, kBQ, Sh::kThreads>(Qs + buf * Sh::kTile,
+                                     qbase + h * a.sq.h + q0 * a.sq.s,
+                                     a.sq.s, rows, a.hd);
+    load_rows<HD, kBQ, Sh::kThreads>(Gs + buf * Sh::kTile,
+                                     gbase + h * a.sdo.h + q0 * a.sdo.s,
+                                     a.sdo.s, rows, a.hd);
+    for (int u = threadIdx.x; u < 2 * kBQ; u += Sh::kThreads) {
+      const int r = u % kBQ;
+      const bool ok = r < rows;
+      const int64_t at = rows_b + static_cast<int64_t>(h) * S + q0 +
+                         (ok ? r : 0);
+      if (u < kBQ)
+        cp_async4(lse_s + buf * kBQ + r, a.lse + at, ok);
+      else
+        cp_async4(del_s + buf * kBQ + r, a.delta + at, ok);
+    }
+  };
+  const int k_rows = imin(kBK, S - k0);
+  load_rows<HD, kBK, Sh::kThreads>(
+      Ks, static_cast<const bf16*>(a.k) + b * a.sk.b + kvh * a.sk.h +
+              k0 * a.sk.s,
+      a.sk.s, k_rows, a.hd);
+  load_rows<HD, kBK, Sh::kThreads>(
+      Vs, static_cast<const bf16*>(a.v) + b * a.sv.b + kvh * a.sv.h +
+              k0 * a.sv.s,
+      a.sv.s, k_rows, a.hd);
+  if (n_steps > 0) prefetch(0);
+  cp_async_commit();
+
+  float dk[kD][4], dv[kD][4];
+#pragma unroll
+  for (int d = 0; d < kD; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[d][c] = dv[d][c] = 0.0f;
+  AFrags<HD, false> ka, va;
+
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every warp is done with tile t - 1
+    if (t == 0) {
+      ka.init(Ks, rg * 16, lane);
+      va.init(Vs, rg * 16, lane);
+    }
+    if (t + 1 < n_steps) prefetch(t + 1);
+    cp_async_commit();
+
+    const int buf = t & 1;
+    const int q0 = (walk.first + t / rep) * kBQ;
+    const bf16* Qt = Qs + buf * Sh::kTile;
+    const bf16* Gt = Gs + buf * Sh::kTile;
+    const float* lse_t = lse_s + buf * kBQ;
+    const float* del_t = del_s + buf * kBQ;
+    const bool full = tile_full(q0, kBQ, k0, kBK, a);
+#pragma unroll
+    for (int sub = 0; sub < Tn::kSub; ++sub) {
+      const int i0 = sub * kN * 8;  // the sub-tile's first query
+      // S^T = K Q^T, dP^T = V dO^T; s[n][c] is key rg * 16 + g + 8 * (c >>
+      // 1), query i0 + n * 8 + 2 * tig + (c & 1) of the tiles: a thread's
+      // rows are keys and its columns queries, so LSE and D go by the column
+      float s[kN][4], dp[kN][4];
+      two_products<HD, kN>(ka, va, Qt + i0 * kLd, Gt + i0 * kLd, lane, s,
+                           dp);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const int col = i0 + n * 8 + 2 * tig;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(del_t + col);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool ok = full || admits(q0 + col + (c & 1),
+                                         k0 + rg * 16 + g + 8 * (c >> 1), a);
+          float p, ds;
+          pair_tc(s[n][c], dp[n][c], ((c & 1) ? l2.y : l2.x) * kLog2e,
+                  (c & 1) ? d2.y : d2.x, ok, a, p, ds);
+          s[n][c] = p;
+          dp[n][c] = ds;
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q over the sub-tile's queries
+      product_acc<HD, kN, kD>(s, Gt + i0 * kLd, c0, lane, dv);
+      product_acc<HD, kN, kD>(dp, Qt + i0 * kLd, c0, lane, dk);
+    }
+  }
+  cp_async_wait_all();
+
+  bf16* dk_out = static_cast<bf16*>(a.dk) + b * a.sdk.b + kvh * a.sdk.h;
+  bf16* dv_out = static_cast<bf16*>(a.dv) + b * a.sdv.b + kvh * a.sdv.h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int j = k0 + rg * 16 + g + 8 * hh;
+    if (j >= S) continue;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      const int col = c0 + d * 8 + 2 * tig;
+      if (col < a.hd) {
+        *reinterpret_cast<__nv_bfloat162*>(dk_out + j * a.sdk.s + col) =
+            __floats2bfloat162_rn(dk[d][2 * hh], dk[d][2 * hh + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv_out + j * a.sdv.s + col) =
+            __floats2bfloat162_rn(dv[d][2 * hh], dv[d][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(const Args& a, int device, cudaStream_t stream) {
+  constexpr int q_bytes = QShape<HD>::kSmem;
+  constexpr int kv_bytes = KvShape<HD>::kSmem;
+  const int n_qt = (a.S + Tune<HD>::kBQ - 1) / Tune<HD>::kBQ;
+  const int n_kt = (a.S + Tune<HD>::kBK - 1) / Tune<HD>::kBK;
+  if (n_qt > 65535 || n_kt > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<flash_bwd_dq_tc<HD>>(q_bytes, device);
+  if (err == cudaSuccess)
+    err = allow_smem<flash_bwd_dkdv_tc<HD>>(kv_bytes, device);
+  if (err != cudaSuccess) return err;
+  // the dQ kernel writes D, which the dK/dV kernel reads (one stream)
+  flash_bwd_dq_tc<HD><<<dim3(a.B * a.H, n_qt), QShape<HD>::kThreads,
+                        q_bytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_tc<HD><<<dim3(a.B * a.KV, n_kt), KvShape<HD>::kThreads,
+                          kv_bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_hd(const Args& a, int device, cudaStream_t stream) {
+  if (a.hd <= 64) return launch<64>(a, device, stream);
+  if (a.hd <= 128) return launch<128>(a, device, stream);
+  return launch<256>(a, device, stream);
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -564,10 +1216,10 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      err = launch_hd<float>(a, device, s);
+      err = launch_fma(a, device, s);
       break;
     case 1:
-      err = launch_hd<__nv_bfloat16>(a, device, s);
+      err = hd % 8 != 0 ? cudaErrorInvalidValue : tc::launch_hd(a, device, s);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -575,14 +1227,50 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The KV tiles (first keys) the dQ kernel visits for query rows
-// [q0, min(q0 + tile, S)), at most `cap`, written to `starts`; returns the
-// count. The forward's rule in the index form, on the host.
-extern "C" int flash_bwd_tile_plan(int q0, int tile, int S, int causal,
+// The tiles of the kernels that take `dtype` (0: float32, 1: bfloat16) at
+// head width `hd`, written to out[2]: {query tile, key tile}. Returns 0, or
+// cudaErrorInvalidValue for a width or type the kernels do not take.
+extern "C" int flash_bwd_tiles(int dtype, int hd, int* out) {
+  if (hd <= 0 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    out[0] = out[1] = fma_tile(hd);
+    return 0;
+  }
+  if (dtype != 1 || hd % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 64) {
+    out[0] = tc::Tune<64>::kBQ;
+    out[1] = tc::Tune<64>::kBK;
+  } else if (hd <= 128) {
+    out[0] = tc::Tune<128>::kBQ;
+    out[1] = tc::Tune<128>::kBK;
+  } else {
+    out[0] = tc::Tune<256>::kBQ;
+    out[1] = tc::Tune<256>::kBK;
+  }
+  return 0;
+}
+
+// The key tiles (first keys) the dQ kernels visit for query rows
+// [q0, min(q0 + bq, S)) with key tiles of bk, at most `cap`, written to
+// `starts`; returns the count. The forward's rule in the index form, on the
+// host.
+extern "C" int flash_bwd_tile_plan(int q0, int bq, int bk, int S, int causal,
                                    int window, int* starts, int cap) {
-  const Plan plan = make_plan(q0, tile, tile, S, causal != 0, window);
-  for (int t = 0; t < plan.n && t < cap; ++t) starts[t] = (plan.first + t) * tile;
+  const Plan plan = make_plan(q0, bq, bk, S, causal != 0, window);
+  for (int t = 0; t < plan.n && t < cap; ++t)
+    starts[t] = (plan.first + t) * bk;
   return plan.n;
+}
+
+// The query tiles (first rows) the dK/dV kernels visit for the key tile at
+// k0 (key_walk), at most `cap`, written to `starts`; returns the count.
+extern "C" int flash_bwd_key_plan(int k0, int bq, int bk, int S, int causal,
+                                  int window, int* starts, int cap) {
+  const Walk walk = key_walk(k0, bq, bk, S, causal != 0, window);
+  for (int t = 0; t < walk.n && t < cap; ++t)
+    starts[t] = (walk.first + t) * bq;
+  return walk.n;
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int err) {

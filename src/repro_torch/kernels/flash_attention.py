@@ -19,11 +19,15 @@ gives dQ, dK and dV of the index form from q, k, v, the output's gradient
 and the forward's per-row log-sum-exp, which both forward kernels write when
 asked (``return_lse``); it recomputes P under the same mask and tile plan
 (two launches: dQ per query tile, which also writes the softmax backward's
-row sums, then dK/dV per key tile; float32 FMAs for both types).
+row sums, then dK/dV per key tile). bfloat16 runs on the tensor cores
+(``flash_bwd_dq_tc``, ``flash_bwd_dkdv_tc``), float32 on float32 FMAs; the
+tiles of each are :func:`bwd_tiles`, the walks :func:`tile_plan` (dQ) and
+:func:`bwd_key_plan` (dK/dV).
 
 ``LAUNCHES`` counts every launch of either forward kernel in this process,
 ``TC_LAUNCHES`` those of the tensor-core kernel, ``BWD_LAUNCHES`` the
-backward's calls (two launches each, counted as one).
+backward's calls (two launches each, counted as one) and
+``BWD_TC_LAUNCHES`` those on the tensor cores.
 """
 
 from __future__ import annotations
@@ -36,12 +40,14 @@ from . import _build
 from .ref import check_lengths
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "tile_plan",
-           "cuda_tile_plan", "cuda_bwd_tile_plan", "LAUNCHES", "TC_LAUNCHES",
-           "BWD_LAUNCHES"]
+           "bwd_tiles", "bwd_key_plan", "cuda_tile_plan", "cuda_bwd_tiles",
+           "cuda_bwd_tile_plan", "cuda_bwd_key_plan", "LAUNCHES",
+           "TC_LAUNCHES", "BWD_LAUNCHES", "BWD_TC_LAUNCHES"]
 
 LAUNCHES = 0
 TC_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_TC_LAUNCHES = 0
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -58,7 +64,11 @@ _BWD_SIGNATURES = {
     + [ctypes.c_int64] * 5 + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
                               ctypes.c_int, ctypes.c_int64, ctypes.c_float,
                               ctypes.c_int, ctypes.c_void_p],
-    "flash_bwd_tile_plan": [ctypes.c_int] * 5 + [
+    "flash_bwd_tiles": [ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int)],
+    "flash_bwd_tile_plan": [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int],
+    "flash_bwd_key_plan": [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int]}
 _BWD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,6 +102,31 @@ def tile_plan(q0: int, block_q: int, block_k: int, S: int, L: int,
     first = max(first, n_pad)
     tiles = list(range(n_pad)) + list(range(first, max(first, last)))
     return [t * block_k for t in tiles]
+
+
+def bwd_tiles(dtype: torch.dtype, hd: int) -> tuple[int, int]:
+    """``(block_q, block_k)`` of the backward kernels for ``dtype`` at head
+    width ``hd``: query tiles of ``block_q`` rows (a dQ block's, and the
+    tiles a dK/dV block walks), key tiles of ``block_k`` (a dK/dV block's,
+    and the tiles a dQ block walks). bfloat16 (``Tune<HD>`` in
+    ``csrc/flash_attention_bwd.cu``): 64 x 64 up to hd 128, 32 queries x 64
+    keys above; float32: 64 x 64 up to hd 128, 32 x 32 above."""
+    if dtype == torch.bfloat16:
+        return (64, 64) if hd <= 128 else (32, 64)
+    return (64, 64) if hd <= 128 else (32, 32)
+
+
+def bwd_key_plan(k0: int, block_q: int, block_k: int, S: int, causal: bool,
+                 window: int | None) -> list[int]:
+    """The first rows of the query tiles, of ``block_q`` rows, that the
+    backward's dK/dV kernel walks for the key tile at ``k0``: those whose
+    :func:`tile_plan` (index form) holds it, in order (``key_walk`` in
+    ``csrc/flash_attention_bwd.cu``). The dQ kernel walks
+    ``tile_plan(q0, block_q, block_k, S, S, causal, window)``, so both
+    visit the same (query tile, key tile) pairs. Stated for the CPU tests;
+    nothing on the path calls it."""
+    return [q0 for q0 in range(0, S, block_q)
+            if k0 in tile_plan(q0, block_q, block_k, S, S, causal, window)]
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -203,8 +238,9 @@ def flash_attention_bwd_cuda(q, k, v, dout, lse, *, causal=True,
     float32 or bfloat16 alike, any strides with the head dimension
     contiguous. The gradients come in the input type, dq laid out
     as a permuted (B, S, H, hd) tensor and dk, dv as permuted (B, S, KV,
-    hd) ones, the layout of the model's projections."""
-    global BWD_LAUNCHES
+    hd) ones, the layout of the model's projections. bfloat16 runs on the
+    tensor-core kernels, float32 on the FMA ones."""
+    global BWD_LAUNCHES, BWD_TC_LAUNCHES
     if q.dtype not in _BWD_DTYPES:
         raise TypeError(f"flash_attention_bwd_cuda takes float32 or "
                         f"bfloat16, got {q.dtype}")
@@ -219,7 +255,9 @@ def flash_attention_bwd_cuda(q, k, v, dout, lse, *, causal=True,
             or lse.device != dev or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous float32 ({b}, {h}, {s}) "
                          f"tensor on {dev}")
-    q, k, v, dout = (_rows(t) for t in (q, k, v, dout))
+    # the tensor-core kernels copy 16-byte pieces of each row
+    fix = _aligned if q.dtype == torch.bfloat16 else _rows
+    q, k, v, dout = (fix(t) for t in (q, k, v, dout))
     dq = torch.empty((b, s, h, hd), dtype=q.dtype,
                      device=dev).permute(0, 2, 1, 3)
     dk = torch.empty((b, s, kvh, hd), dtype=q.dtype,
@@ -242,6 +280,8 @@ def flash_attention_bwd_cuda(q, k, v, dout, lse, *, causal=True,
         _build.stream_of(q))
     _build.check("flash_attention_bwd", "flash_attention_bwd", err)
     BWD_LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        BWD_TC_LAUNCHES += 1
     return dq, dk, dv
 
 
@@ -260,16 +300,42 @@ def cuda_tile_plan(q0: int, block_q: int, block_k: int, S: int, L: int,
     return list(starts[:n])
 
 
-def cuda_bwd_tile_plan(q0: int, tile: int, S: int, causal: bool,
-                       window: int | None) -> list[int]:
-    """The KV tiles the backward's dQ kernel visits for query rows ``[q0,
-    min(q0 + tile, S))`` (its ``make_plan``, run on the host): the index
-    form of :func:`tile_plan`. Builds the library, so it needs ``nvcc``."""
+def cuda_bwd_tiles(dtype: torch.dtype, hd: int) -> tuple[int, int]:
+    """The backward kernels' (query tile, key tile) for ``dtype`` at head
+    width ``hd``, as the CUDA library states them (``flash_bwd_tiles``).
+    Builds the library, so it needs ``nvcc``."""
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    cap = -(-S // tile) + 1
+    out = (ctypes.c_int * 2)()
+    _build.check("flash_attention_bwd", "flash_bwd_tiles",
+                 lib.flash_bwd_tiles(_BWD_DTYPES[dtype], hd, out))
+    return out[0], out[1]
+
+
+def _plan(fn: str, start: int, block_q: int, block_k: int, S: int,
+          causal: bool, window: int | None, cap: int) -> list[int]:
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     starts = (ctypes.c_int * cap)()
-    n = lib.flash_bwd_tile_plan(q0, tile, S, int(bool(causal)), window or 0,
-                                starts, cap)
+    n = getattr(lib, fn)(start, block_q, block_k, S, int(bool(causal)),
+                         window or 0, starts, cap)
     if not 0 <= n <= cap:
-        raise RuntimeError(f"flash_bwd_tile_plan gave {n} tiles")
+        raise RuntimeError(f"{fn} gave {n} tiles (at most {cap})")
     return list(starts[:n])
+
+
+def cuda_bwd_tile_plan(q0: int, block_q: int, block_k: int, S: int,
+                       causal: bool, window: int | None) -> list[int]:
+    """The key tiles the backward's dQ kernels visit for query rows ``[q0,
+    min(q0 + block_q, S))`` (their ``make_plan``, run on the host): the
+    index form of :func:`tile_plan`. Builds the library, so it needs
+    ``nvcc``."""
+    return _plan("flash_bwd_tile_plan", q0, block_q, block_k, S, causal,
+                 window, -(-S // block_k) + 1)
+
+
+def cuda_bwd_key_plan(k0: int, block_q: int, block_k: int, S: int,
+                      causal: bool, window: int | None) -> list[int]:
+    """The query tiles the backward's dK/dV kernels walk for the key tile at
+    ``k0`` (their ``key_walk``, run on the host): :func:`bwd_key_plan`.
+    Builds the library, so it needs ``nvcc``."""
+    return _plan("flash_bwd_key_plan", k0, block_q, block_k, S, causal,
+                 window, -(-S // block_q) + 1)

@@ -158,6 +158,8 @@ def launch_counts() -> dict[str, int]:
     counts both forward flash kernels, ``flash_attention_tc`` the
     tensor-core (bfloat16) one alone, ``flash_attention_bwd`` and
     ``mamba_scan_bwd`` the backward calls (two launches and one),
+    ``flash_attention_bwd_tc`` the backward calls on the tensor cores
+    (bfloat16),
     ``dispatch_positions`` both position ops (one launch a call),
     ``dispatch_work_prefix`` one a call (two launches)."""
     return {"prefix_scan": _scan.LAUNCHES,
@@ -166,6 +168,7 @@ def launch_counts() -> dict[str, int]:
             "flash_attention": _flash.LAUNCHES,
             "flash_attention_tc": _flash.TC_LAUNCHES,
             "flash_attention_bwd": _flash.BWD_LAUNCHES,
+            "flash_attention_bwd_tc": _flash.BWD_TC_LAUNCHES,
             "mamba_scan": _mamba.LAUNCHES,
             "mamba_scan_bwd": _mamba.BWD_LAUNCHES}
 
@@ -177,5 +180,6 @@ def reset_launch_counts() -> None:
     _flash.LAUNCHES = 0
     _flash.TC_LAUNCHES = 0
     _flash.BWD_LAUNCHES = 0
+    _flash.BWD_TC_LAUNCHES = 0
     _mamba.LAUNCHES = 0
     _mamba.BWD_LAUNCHES = 0

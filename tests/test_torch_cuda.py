@@ -509,29 +509,34 @@ def _rows_checked(want):
     return norms >= 1e-3 * norms.max()
 
 
-@pytest.mark.parametrize("b,h,kv,s,hd,dtype,window,softcap", [
-    (2, 4, 2, 130, 64, torch.bfloat16, None, None),
-    (1, 8, 4, 300, 128, torch.bfloat16, 100, None),
-    (2, 4, 2, 200, 64, torch.bfloat16, None, 30.0),
-    (2, 4, 2, 100, 64, torch.float32, None, None),
-    (2, 4, 2, 300, 64, torch.float32, 16, None),
-    (2, 4, 2, 300, 64, torch.float32, None, 30.0),
-    (1, 4, 2, 200, 256, torch.float32, 50, None),
-    (1, 4, 1, 70, 32, torch.float32, None, None)])
+@pytest.mark.parametrize("b,h,kv,s,hd,dtype,window,softcap,causal", [
+    (2, 4, 2, 130, 64, torch.bfloat16, None, None, True),
+    (1, 8, 4, 300, 128, torch.bfloat16, 100, None, True),
+    (2, 4, 2, 200, 64, torch.bfloat16, None, 30.0, True),
+    (1, 4, 2, 200, 256, torch.bfloat16, 50, None, True),
+    (2, 4, 2, 150, 64, torch.bfloat16, None, None, False),
+    (1, 4, 1, 70, 32, torch.bfloat16, None, None, True),
+    (2, 4, 2, 100, 64, torch.float32, None, None, True),
+    (2, 4, 2, 300, 64, torch.float32, 16, None, True),
+    (2, 4, 2, 300, 64, torch.float32, None, 30.0, True),
+    (1, 4, 2, 200, 256, torch.float32, 50, None, True),
+    (1, 4, 1, 70, 32, torch.float32, None, None, True)])
 def test_flash_backward_kernel_matches_plain(cuda, b, h, kv, s, hd, dtype,
-                                             window, softcap):
+                                             window, softcap, causal):
     g = torch.Generator().manual_seed(s + hd)
     q, do = (torch.randn(b, h, s, hd, generator=g).to(cuda, dtype)
              for _ in range(2))
     k, v = (torch.randn(b, kv, s, hd, generator=g).to(cuda, dtype)
             for _ in range(2))
-    kw = dict(window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = ops.launch_counts()
     out = ops.flash_attention(*leaves, **kw)
     got = torch.autograd.grad(out, leaves, do)
     after = ops.launch_counts()
     assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert (after["flash_attention_bwd_tc"]
+            - before["flash_attention_bwd_tc"]) == int(dtype == torch.bfloat16)
     want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
     for a, w in zip(got, want):
         assert a.dtype == dtype and a.shape == w.shape
@@ -543,6 +548,47 @@ def test_flash_backward_kernel_matches_plain(cuda, b, h, kv, s, hd, dtype,
         else:
             assert (a - w).abs().max().item() <= \
                 BWD_F32_TOL * w.abs().max().item()
+
+
+def test_flash_backward_tc_counter_and_repeat(cuda):
+    """Every bfloat16 backward call runs the tensor-core kernels (counted
+    once in ``flash_attention_bwd`` and in ``flash_attention_bwd_tc``), a
+    float32 call the FMA ones (0 in ``flash_attention_bwd_tc``); two calls
+    on the same inputs give the same bits (no atomics)."""
+    g = torch.Generator().manual_seed(3)
+    for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q, do = (torch.randn(2, 8, 257, 64, generator=g).to(cuda, dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(2, 2, 257, 64, generator=g).to(cuda, dtype)
+                for _ in range(2))
+        _, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
+        ops.reset_launch_counts()
+        first = flash.flash_attention_bwd_cuda(q, k, v, do, lse)
+        again = flash.flash_attention_bwd_cuda(q, k, v, do, lse)
+        counts = ops.launch_counts()
+        assert counts["flash_attention_bwd"] == 2
+        assert counts["flash_attention_bwd_tc"] == 2 * tc
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_bwd_tile_plans_are_the_kernels(cuda, dtype, hd):
+    """The backward kernels' tiles and walks (their rule, run on the host)
+    against ``bwd_tiles``, ``tile_plan`` and ``bwd_key_plan``."""
+    bq, bk = flash.bwd_tiles(dtype, hd)
+    assert flash.cuda_bwd_tiles(dtype, hd) == (bq, bk)
+    for s in (1, 63, 65, 129, 700):
+        for causal in (True, False):
+            for window in (None, 1, 16, 100):
+                for q0 in range(0, s, bq):
+                    assert flash.cuda_bwd_tile_plan(
+                        q0, bq, bk, s, causal, window) == flash.tile_plan(
+                            q0, bq, bk, s, s, causal, window)
+                for k0 in range(0, s, bk):
+                    assert flash.cuda_bwd_key_plan(
+                        k0, bq, bk, s, causal, window) == flash.bwd_key_plan(
+                            k0, bq, bk, s, causal, window)
 
 
 @pytest.mark.parametrize("shape,dtype", [((2, 37, 3, 36), torch.float32),
@@ -597,6 +643,7 @@ def test_granite_two_layer_train_step_on_card(cuda):
         m["grad_norm"].item())
     assert counts["flash_attention"] == counts["flash_attention_tc"] == 4
     assert counts["flash_attention_bwd"] == 2
+    assert counts["flash_attention_bwd_tc"] == 2
     assert counts["dispatch_positions"] == 4
     assert counts["mamba_scan"] == counts["prefix_scan"] == 0
     assert not torch.equal(lm.stages[0].attn.wq.w.detach(), before)
