@@ -54,7 +54,9 @@ Phases, each fatal on failure:
              torch.profiler gives device time by kernel, flash's included.
 6. serve-vs-plain — the same config with 2 layers in float32, the same
              weights on the card and on the CPU (which runs the plain
-             versions): 4 right-padded prompts prefilled on each; last-token
+             versions): 4 right-padded prompts prefilled on each (the CPU
+             compares its second prefill: see the warm-up's comment in
+             ``phase_serve_vs_plain``); last-token
              logits within 1e-4 x max|logit| and every layer's routing equal
              (see ``phase_serve_vs_plain``).
 7. kernels (mamba) — the selective-scan kernel against its plain version on
@@ -196,6 +198,26 @@ Phases, each fatal on failure:
        removed, which resumes at step 2: the resumed losses must equal the
        uninterrupted run's bit for bit (within 1e-6 relative, reported,
        if an op around the kernels were not deterministic).
+15. the distributed layer — the eleventh slice's paths:
+    a. in a child process (``chip_smoke.py --mesh-child OUT SMI``, which
+       writes its result to OUT as JSON): an NCCL world
+       of 1 rank on the card (address tcp://localhost at a free port) and
+       the (1, 1) ("data", "model") mesh of ``launch.mesh.elastic_mesh(1,
+       model_parallel=1)``; ``core.axis_exclusive_scan`` over its size-1
+       axis returns (0, x); then granite-moe-1b-a400m at full width and
+       depth trained 3 steps through ``repro_torch.train.train`` as
+       ``launch.train`` calls it, without a mesh and then under
+       ``set_mesh`` and the mesh's activation rules (DTensor state, the
+       weights gathered at use, the sharded step): the losses and every
+       parameter equal bit for bit, and both runs launch a step what 14b
+       does (the gathers launch none of the kernels). Step time, tokens/s
+       and peak memory of both runs.
+    b. ``python -m repro_torch.launch.dryrun --arch granite-moe-1b-a400m
+       --shape train_4k --mesh single`` (a fake world of 256 ranks, the LM
+       on meta) into build/chip_smoke_dryrun/, then ``python -m
+       repro_torch.launch.summarize`` over it: the record parses and its
+       state bytes a rank equal the sharding plan's arithmetic for the
+       16 x 16 mesh (``plan_state_bytes``).
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -206,15 +228,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import hashlib
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import time
 import urllib.request
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -1141,10 +1167,25 @@ def phase_serve_vs_plain(dev):
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
         on_card, calls[:] = list(calls), []
+        # The host's first float32 prefill in a process that has run the
+        # card's is, now and then, not the host's usual result. In fresh
+        # processes on the card machine (experiments/torch_phase6_probe.py,
+        # variants "card" and "card_hashfirst") the first host call parted
+        # from the common bits in 1 of 48 and 2 of 40, its router logits
+        # ~5e-5 x max off the card; the second and third calls never did
+        # (0 of 136, 48 of them with MKL_DYNAMIC=FALSE), nor did CPU-only
+        # processes (0 of 92). Digested op by op, the first output that
+        # parts is aten.cos (RoPE's cos of the angles) on the CPU, whose
+        # first call in such a process is not always bit for bit its
+        # later ones. So the compared prefill is the host's second; the
+        # warm-up's result is dropped, and whether it matched is logged.
+        warm, _ = host.prefill(host.init_cache(4, 512), toks, lens)
+        calls[:] = []
         t0 = time.perf_counter()
         logit_host, _ = host.prefill(host.init_cache(4, 512), toks, lens)
         t_host = time.perf_counter() - t0
         on_host = list(calls)
+        warm_same = torch.equal(warm, logit_host)
     finally:
         moe_mod.dispatch_grouped = plain_dispatch
     if len(on_card) != cfg.n_layers or len(on_host) != cfg.n_layers:
@@ -1209,7 +1250,8 @@ def phase_serve_vs_plain(dev):
     log(f"[serve-vs-plain] {ARCH} x 2 layers f32, prompts {lens.tolist()} "
         f"(bucket 512): last-token logits within {err:.3e} x max|logit| "
         f"on {len(keep_rows)} prompts, same greedy tokens; prefill {t_card:.3f}s "
-        f"on the card, {t_host:.3f}s on the CPU")
+        f"on the card, {t_host:.3f}s on the CPU (its warm-up prefill "
+        f"{'equal to' if warm_same else 'NOT equal to'} it to the bit)")
 
 
 # ---------------------------------------------------------------------------
@@ -2311,14 +2353,16 @@ def phase_kernels_bwd(dev, smi: str):
     return [flash_bwd, scan_bwd]
 
 
-def run_train(tag, cfg, dev, smi, *, shards, rows, steps, expected):
+def run_train(tag, cfg, dev, smi, *, shards, rows, steps, expected,
+              materialize=True):
     """Train ``cfg`` on the card through ``repro_torch.train.train`` with
     launch.train's optimizer and schedule (remat on, the config's policy).
     The launch counters are zeroed just before each step and read just
     after (the loop's metrics hook), and must equal ``expected`` (zeros for
     the kernels it leaves out). Returns (lm, state, pipeline, history,
-    per-step launch counts)."""
-    lm = LM(cfg, device=dev)
+    per-step launch counts). ``materialize=False`` builds the LM on meta
+    (the loop draws it)."""
+    lm = LM(cfg, device=dev, materialize=materialize)
     monitor = StragglerMonitor(n_hosts=shards)
     stream = DocStream(vocab_size=cfg.vocab_size, mean_len=TRAIN_SEQ // 2,
                        max_len=TRAIN_SEQ, seed=0)
@@ -2588,6 +2632,245 @@ def phase_restart(smi: str):
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the distributed layer — a (1, 1) mesh on the card, the dry run
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3          # 15a
+MESH_CHILD = "--mesh-child"
+MESH_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh.json"
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
+
+
+def _digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes (on the host)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def mesh_child(side: str, out: str, smi: str) -> int:
+    """15a, one side in a process of its own, so that each run's peak
+    memory counts its own tensors alone: granite at full width and depth
+    trained MESH_STEPS steps through ``run_train`` (14b's data, optimizer
+    and schedule; launches checked a step). ``side`` "plain": no mesh.
+    ``side`` "mesh": an NCCL world of 1 rank on the card (its address
+    tcp://localhost at a free port), the (1, 1) ("data", "model") mesh of
+    ``elastic_mesh(1, model_parallel=1)``, the axis scan over its size-1
+    axis, and the run under ``set_mesh`` and the mesh's activation rules,
+    as ``launch.train`` trains, its LM built on meta
+    (``materialize=False``) and drawn one leaf at a time. Writes the
+    losses, the launches a step, the memory before and at the peak and
+    every parameter's sha256 to ``out`` as JSON."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core import axis_exclusive_scan
+    from repro_torch.launch.mesh import elastic_mesh, set_mesh
+    from repro_torch.launch.shardings import activation_rules
+    from repro_torch.models.common import logical_axis_rules
+    from repro_torch.models.distributed import to_local
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(ARCH)
+    n = cfg.n_layers
+    expected = {"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
+                "flash_attention_bwd": n, "flash_attention_bwd_tc": n,
+                "dispatch_positions": 2 * n}
+    res = {"side": side}
+    with contextlib.ExitStack() as stack:
+        if side == "mesh":
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            t0 = time.perf_counter()
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                rank=0, device_id=dev)
+            stack.callback(dist.destroy_process_group)
+            res["init_s"] = time.perf_counter() - t0
+            res["backend"] = dist.get_backend()
+            mesh = elastic_mesh(1, model_parallel=1)
+            res["mesh_shape"] = [list(mesh.shape),
+                                 list(mesh.mesh_dim_names)]
+            x = torch.arange(1.0, 6.0, device=dev)
+            exc, total = axis_exclusive_scan(x, mesh, "data")
+            res["scan_ok"] = bool(torch.equal(exc, torch.zeros_like(x))
+                                  and total is x)
+            stack.enter_context(set_mesh(mesh))
+            stack.enter_context(logical_axis_rules(activation_rules(cfg,
+                                                                    mesh)))
+        torch.cuda.synchronize()
+        res["before_bytes"] = torch.cuda.memory_allocated()
+        result = run_train(f"mesh-{side}", cfg, dev, smi,
+                           shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
+                           steps=MESH_STEPS, expected=expected,
+                           materialize=side == "plain")
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        lm, hist, per_step = result[0], result[4], result[5]
+        res["losses"] = [row["loss"] for row in hist]
+        res["counts"] = per_step
+        names, params = zip(*lm.named_parameters())
+        with ThreadPoolExecutor(8) as pool:   # sha256 lets go of the GIL
+            res["params"] = dict(zip(names, pool.map(
+                lambda p: _digest(to_local(p)), params)))
+        res["n_params"] = sum(p.numel() for p in lm.parameters())
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def plan_state_bytes(cfg, mesh_shape=(16, 16)) -> int:
+    """The bytes of the train state a rank of the (data, model) mesh holds
+    under the sharding plans: each leaf of the parameters and both AdamW
+    moments with every dim divided by its axes' sizes, and the step."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch.shardings import state_pspecs
+    from repro_torch.models.common import param_tree
+    from repro_torch.optim.adamw import AdamWState, tree_items
+    from repro_torch.train.state import TrainState
+
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           devices=np.empty(mesh_shape, dtype=object))
+    sizes = dict(zip(mesh.axis_names, mesh_shape))
+    params = param_tree(LM(cfg, device="meta"))
+    specs = state_pspecs(TrainState(params, AdamWState(None, params, params)),
+                         cfg, mesh)
+    moment = torch.empty((), dtype=dtype_of(cfg.moments_dtype))
+    total = 4                                   # the int32 step
+    for tree, itemsize in ((specs.params, None), (specs.opt.m, moment),
+                           (specs.opt.v, moment)):
+        for path, p in tree_items(params):
+            spec = tree
+            for key in path:
+                spec = spec[key]
+            n = 1
+            for dim, part in zip(p.shape, spec + (None,) * p.dim()):
+                axes = (part,) if isinstance(part, str) else (part or ())
+                n *= dim // math.prod(sizes[a] for a in axes)
+            total += n * (p.element_size() if itemsize is None
+                          else itemsize.element_size())
+    return total
+
+
+def phase_mesh(smi: str):
+    """Phase 15; returns 15a's launches of each kernel over its sharded
+    run. 15b runs on the host meanwhile (a CPU-only child: the fake
+    world), so that the phase stays within its time."""
+    t15 = time.perf_counter()
+    dryrun = start_dryrun()
+    launches = phase_mesh_train(smi)
+    phase_dryrun(*dryrun)
+    log(f"[phase 15] {time.perf_counter() - t15:.1f}s")
+    return launches
+
+
+def _mesh_side(side: str, smi: str) -> dict:
+    """One side of 15a in its own child process; its result."""
+    MESH_OUT.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           MESH_CHILD, side, str(MESH_OUT), smi],
+                          capture_output=True, text=True, timeout=300)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[mesh-"):
+            log(line)
+    if proc.returncode:
+        fail(f"mesh: the {side} child exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    res = json.loads(MESH_OUT.read_text())
+    MESH_OUT.unlink()
+    res["child_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_mesh_train(smi: str):
+    """15a: the unsharded and the (1, 1)-mesh run, each in its own child;
+    returns the sharded run's launches."""
+    plain = _mesh_side("plain", smi)
+    sharded = _mesh_side("mesh", smi)
+    if sharded["backend"] != "nccl" or sharded["mesh_shape"] != [
+            [1, 1], ["data", "model"]]:
+        fail(f"mesh: backend {sharded['backend']}, mesh "
+             f"{sharded['mesh_shape']}")
+    if not sharded["scan_ok"]:
+        fail("mesh: the axis scan over a size-1 axis is not (0, x)")
+    same = plain["params"] == sharded["params"]
+    if sharded["losses"] != plain["losses"] or not same:
+        fail(f"mesh: the (1, 1) mesh's losses {sharded['losses']} or "
+             f"parameters differ from the unsharded run's "
+             f"{plain['losses']} (params equal: {same})")
+    log(f"[mesh] NCCL world of 1 up in {sharded['init_s']:.2f}s; axis scan "
+        f"over a size-1 axis = (0, x); {MESH_STEPS} steps on the (1, 1) "
+        f"mesh equal the unsharded ones bit for bit: losses "
+        f"{sharded['losses']}, all {sharded['n_params']:,} parameters "
+        f"(sha256 each); launches a step as 14b's")
+    for res in (plain, sharded):
+        log(f"[mesh-{res['side']}] own process: {res['before_bytes']:,} "
+            f"bytes on the card before the run, peak "
+            f"{res['peak_bytes']:,} bytes ({res['peak_bytes'] / 1e9:.2f} "
+            f"GB); child {res['child_s']:.1f}s ({smi})")
+    return {name: sum(c[name] for c in sharded["counts"])
+            for name in sharded["counts"][0]}
+
+
+def start_dryrun():
+    """15b's dry run started in a child (python -m
+    repro_torch.launch.dryrun); returns (process, start time, env)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = {**os.environ,
+           "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    cell = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            ARCH, "--shape", "train_4k", "--mesh", "single", "--out",
+            str(DRYRUN_DIR)]
+    proc = subprocess.Popen(cell, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    return proc, time.perf_counter(), env
+
+
+def phase_dryrun(proc, t0, env):
+    """15b: the dry run's CLI (started by ``start_dryrun``) and its
+    summary in subprocesses."""
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    if proc.returncode:
+        fail(f"dryrun: exited {proc.returncode}: {stdout[-2000:]} "
+             f"{stderr[-2000:]}")
+    summary = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.summarize", "--dir",
+         str(DRYRUN_DIR)], capture_output=True, text=True, env=env,
+        timeout=120)
+    if summary.returncode:
+        fail(f"summarize: exited {summary.returncode}: "
+             f"{summary.stderr[-2000:]}")
+    rec = json.loads((DRYRUN_DIR /
+                      f"{ARCH}__train_4k__single.json").read_text())
+    want = plan_state_bytes(get_config(ARCH))
+    if rec["memory"]["state_bytes"] != want or rec["n_devices"] != 256:
+        fail(f"dryrun: state bytes {rec['memory']['state_bytes']} on "
+             f"{rec['n_devices']} ranks, the plan's {want} on 256")
+    r = rec["roofline"]
+    for line in summary.stdout.strip().splitlines()[2:5]:
+        log(f"[dryrun] {line}")
+    log(f"[dryrun] {ARCH} train_4k on a fake world of 256 ranks: state "
+        f"{rec['memory']['state_bytes']:,} bytes a rank (= the plan's), "
+        f"{rec['cost']['flops']:.4e} FLOPs a rank, "
+        f"{rec['collectives']['total_count']} collectives "
+        f"({rec['collectives']['total_bytes']:,} bytes on the wire), "
+        f"useful {r['useful_compute_ratio']:.4f}, roofline "
+        f"{r['roofline_fraction']:.4f} (H100 SXM data-sheet figures); "
+        f"{time.perf_counter() - t0:.1f}s with summarize")
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+
+
 def phase_train(smi: str, dev):
     """Phase 14; returns the backward kernels' records and the training
     path's launch counts (14b)."""
@@ -2692,6 +2975,11 @@ def main() -> int:
             k["train_launches"] = granite[k["name"]]
     kernels[-1]["falcon_train_launches"] = falcon["mamba_scan"]
     kernels += records
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(smi)
+    for k in kernels:
+        if k["name"] in mesh:
+            k["mesh_launches"] = mesh[k["name"]]
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2708,4 +2996,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [MESH_CHILD]:
+        sys.exit(mesh_child(sys.argv[2], sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -1,7 +1,8 @@
 """PSTS core — the paper's contribution as a composable library.
 
 Layers carried over from the JAX package so far:
-  scan       — prefix-scan primitives (host numpy, torch tensors)
+  scan       — prefix-scan primitives (host numpy, torch tensors, and the
+               cross-rank ladder along a DeviceMesh dimension)
   hypergrid  — hyper-grid embedding, virtual nodes, optimal dimension
   pslb       — 1-D positional scan load balancing
   psts       — recursive hyper-grid task scheduling
@@ -27,6 +28,8 @@ from .pslb import (
 )
 from .psts import ScheduleResult, psts_schedule, sender_receiver
 from .scan import (
+    axis_exclusive_scan,
+    axis_inclusive_scan,
     exclusive_scan,
     exclusive_scan_np,
     inclusive_scan,
@@ -50,7 +53,8 @@ __all__ = [
     "pslb_assign",
     "ScheduleResult", "psts_schedule", "sender_receiver",
     "exclusive_scan", "exclusive_scan_np", "inclusive_scan",
-    "inclusive_scan_np", "segment_positions",
+    "inclusive_scan_np", "segment_positions", "axis_exclusive_scan",
+    "axis_inclusive_scan",
     "SimConfig", "SimResult", "crossover_table", "simulate", "sweep_nodes",
     "CrossoverTrigger", "TriggerDecision", "imbalance",
 ]

@@ -1,8 +1,11 @@
 """Kernel API: the tensor's own device picks the implementation.
 
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
-launches the hand-written kernel, or raises if it cannot (no fallback). Any
-other device raises.
+launches the hand-written kernel, or raises if it cannot (no fallback). A
+meta tensor (the dry run: shapes, no values) takes the plain version for
+its shapes alone. A DTensor is refused: it reports its mesh's device type
+and would reach a kernel whole, where a kernel takes this rank's local
+tensors. Any other device raises.
 
 ``flash_attention`` (index form) and ``mamba_scan`` carry a gradient: on the
 CPU autograd runs through the plain versions, on the card through
@@ -15,6 +18,7 @@ it.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import flash_attention as _flash
 from . import mamba_scan as _mamba
@@ -28,9 +32,12 @@ __all__ = ["prefix_scan", "dispatch_work_prefix", "dispatch_positions",
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
+    if isinstance(t, DTensor):
+        raise TypeError("the kernels take local tensors, not a DTensor; "
+                        "gather it or take its to_local() first")
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel for device {t.device}; use cuda or cpu")
 
@@ -70,10 +77,16 @@ def dispatch_positions_levels(topk_idx: torch.Tensor, n_experts: int,
     layer's k priority levels ``topk_idx`` (R, T, k) int32 in one call (one
     launch on the card): level s counts from the previous level's fill
     clamped to ``capacity``, and ``filled`` is the kept count per expert
-    (see ``ref.dispatch_positions_levels_ref``)."""
+    (see ``ref.dispatch_positions_levels_ref``). On meta tensors the plain
+    version's shapes and dtypes alone (nothing runs on meta)."""
     if _on_cuda(topk_idx):
         return _dispatch.dispatch_positions_levels_cuda(topk_idx, n_experts,
                                                         capacity)
+    if topk_idx.device.type == "meta":
+        slot_idx = torch.empty_like(topk_idx, dtype=torch.int32)
+        return (slot_idx, slot_idx < capacity,
+                topk_idx.new_empty((topk_idx.shape[0], n_experts),
+                                   dtype=torch.int32))
     return ref.dispatch_positions_levels_ref(topk_idx, n_experts, capacity)
 
 
@@ -145,11 +158,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
 
 def mamba_scan(da: torch.Tensor, dbx: torch.Tensor) -> torch.Tensor:
     """The selective scan ``h_t = da_t * h_{t-1} + dbx_t`` over axis 1 of
-    da, dbx (B, S, N, di), from h = 0; h in float32; differentiable."""
+    da, dbx (B, S, N, di), from h = 0; h in float32; differentiable. On
+    meta tensors the plain version's shape, from one elementwise op over
+    both inputs in place of its loop of S steps (nothing runs on meta)."""
     if _on_cuda(da):
         if _wants_grad(da, dbx):
             return _MambaScan.apply(da, dbx)
         return _mamba.mamba_scan_cuda(da, dbx)
+    if da.device.type == "meta":
+        return da.float() * dbx.float()
     return ref.mamba_scan_ref(da, dbx)
 
 

@@ -8,24 +8,36 @@ One card, full width:
   python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
       --steps 8 --rows 2 --seq-len 2048
 
+On the production mesh (256 ranks, or 512 with ``multi``, one card each,
+started by a launcher that sets each rank's environment):
+  torchrun --nproc-per-node 8 --nnodes 32 ... \\
+      -m repro_torch.launch.train --arch granite-moe-1b-a400m --mesh single
+
 Prints one JSON line (``final_step``, ``first_loss``, ``final_loss``), as
 ``repro.launch.train`` does. The weights are drawn by ``LM.init`` from a
-``torch.Generator`` seeded ``--seed`` on the device. ``--mesh single|multi``
-needs the production meshes and sharding plans (``launch/{mesh,shardings}``),
-which a later slice of the port brings; until then it raises.
+``torch.Generator`` seeded ``--seed`` on the device. With ``--mesh`` the
+loop runs under ``set_mesh`` and the mesh's activation rules, as the
+reference's does, and trains sharded (``train.sharded``): the LM is built
+on meta and each rank draws the weights one leaf at a time, keeping its
+shards.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+
+import torch
 
 from ..configs import get_config
 from ..data import DocStream, Pipeline
 from ..device import resolve_device
 from ..models import LM
-from ..models.common import dtype_of
+from ..models.common import dtype_of, logical_axis_rules
+from .mesh import make_production_mesh, set_mesh
+from .shardings import activation_rules
 from ..optim import AdamW, warmup_cosine
 from ..sched.straggler import StragglerMonitor
 from ..train import LoopConfig, train
@@ -60,17 +72,19 @@ def main(argv=None):
                     help="torch device; default the CUDA device (cpu runs "
                          "the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise ValueError(
-            f"--mesh {args.mesh} needs launch/{{mesh,shardings}}, which the "
-            f"port brings in its distributed slice; only --mesh none runs")
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    lm = LM(cfg, device=resolve_device(args.device))
+    mesh = None
+    if args.mesh != "none":   # first: on cuda it picks each rank's card
+        mesh = make_production_mesh(
+            multi_pod=args.mesh == "multi",
+            device_type=torch.device(args.device or "cuda").type)
+    lm = LM(cfg, device=resolve_device(args.device),
+            materialize=mesh is None)
     stream = DocStream(vocab_size=cfg.vocab_size,
                        mean_len=max(args.seq_len // 2, 16),
                        max_len=args.seq_len, seed=args.seed)
@@ -87,7 +101,12 @@ def main(argv=None):
         metrics_hook=lambda step, row: print(
             f"step {step:5d} loss {row['loss']:.4f} "
             f"lr {row['lr']:.2e} dt {row['dt']*1e3:.0f}ms", flush=True))
-    state, history = train(lm, opt, sch, pipe, loop, monitor=monitor)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(set_mesh(mesh))
+            stack.enter_context(logical_axis_rules(activation_rules(cfg,
+                                                                    mesh)))
+        state, history = train(lm, opt, sch, pipe, loop, monitor=monitor)
     print(json.dumps({"final_step": int(state.opt.step),
                       "first_loss": history[0]["loss"],
                       "final_loss": history[-1]["loss"]}))

@@ -25,7 +25,7 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.ref import flash_attention_ref
-from .common import Dense, dense, rope
+from .common import Dense, dense, reset_parameters, rope
 
 __all__ = ["Attention", "KVCache", "attn_init", "attn_train", "attn_prefill",
            "attn_decode", "chunked_attention"]
@@ -69,9 +69,7 @@ class Attention(nn.Module):
                         scale=(cfg.n_heads * hd * 2 * cfg.n_layers) ** -0.5,
                         dtype=dtype, device=device)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for layer in self.children():
-            layer.reset_parameters(generator)
+    reset_parameters = reset_parameters
 
 
 def attn_init(generator, cfg, dtype=torch.float32, device=None) -> Attention:

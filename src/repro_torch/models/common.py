@@ -5,24 +5,54 @@ dict keys (``w``/``b`` of a dense layer, ``scale``/``bias`` of a norm), so a
 JAX parameter pytree maps onto a state dict by joining keys with dots
 (``models.convert``). The computation is plain functions over nested dicts
 of tensors with the same keys, as in the JAX package: ``dense(p, x)`` with
-``p = {"w": ...}``. Initialisers take an explicit ``torch.Generator``.
+``p = {"w": ...}``. Initialisers take an explicit ``torch.Generator``: a
+layer's ``draws`` gives its initial values one leaf at a time (``draws``
+walks a model's layers in order), and ``reset_parameters`` copies them in.
 
-The JAX package's ``shard``/``logical_axis_rules`` are sharding hints for a
-TPU mesh; on one card they have no counterpart and are left out.
+``logical_axis_rules`` binds logical-axis -> mesh-axis rules (``launch.
+shardings.activation_rules``) for the duration of a ``with`` block, as the
+JAX package's does; the sharded train step reads the ``batch`` axes it
+splits the batch over from them when it is built. The JAX package's
+``shard`` (an activation sharding constraint for XLA) has no counterpart:
+the port's sharded step gathers weights and splits the batch itself
+(``models.distributed``).
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
+from contextvars import ContextVar
 
 import torch
 from torch import nn
 
 __all__ = [
-    "dtype_of", "dense", "rmsnorm", "layernorm", "layernorm_np", "rope",
+    "logical_axis_rules", "current_rules", "dtype_of", "dense", "rmsnorm",
+    "layernorm", "layernorm_np", "rope",
     "sinusoidal_positions", "trunc_normal", "Dense", "RMSNorm", "LayerNorm",
-    "Embed", "dense_init", "embed_init", "param_tree",
+    "Embed", "dense_init", "embed_init", "param_tree", "draws",
+    "reset_parameters",
 ]
+
+
+_RULES: ContextVar[dict | None] = ContextVar("logical_axis_rules",
+                                             default=None)
+
+
+@contextmanager
+def logical_axis_rules(rules: dict):
+    """Bind logical-axis -> mesh-axis rules (e.g. {"batch": ("pod",
+    "data"), "ff": "model"}) for the duration of the block."""
+    token = _RULES.set(dict(rules))
+    try:
+        yield
+    finally:
+        _RULES.reset(token)
+
+
+def current_rules() -> dict | None:
+    return _RULES.get()
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -103,6 +133,30 @@ def trunc_normal(shape, scale: float, generator: torch.Generator,
     return (t * scale).to(dtype)
 
 
+def draws(module: nn.Module, generator: torch.Generator, device):
+    """``module``'s initial parameter values, drawn one leaf at a time on
+    ``device``: ``(name under module, float32 value)`` in the order the
+    generator is used. A module with a ``draws`` method gives its own (its
+    leaves' distributions); any other its children's, in order. A consumer
+    that keeps only what it needs of each value before asking for the next
+    holds one whole leaf at a time (``train.sharded``)."""
+    if hasattr(module, "draws"):
+        yield from module.draws(generator, device)
+        return
+    for child_name, child in module.named_children():
+        for name, value in draws(child, generator, device):
+            yield f"{child_name}.{name}", value
+
+
+@torch.no_grad()
+def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw ``module``'s parameters (``draws``) into them, on their
+    device."""
+    device = next(module.parameters()).device
+    for name, value in draws(module, generator, device):
+        module.get_parameter(name).copy_(value)
+
+
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
@@ -121,11 +175,13 @@ class Dense(nn.Module):
         if bias:
             self.b = _param((d_out,), dtype, device)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self.w.copy_(trunc_normal(self.w.shape, self.init_scale, generator,
-                                  device=self.w.device))
+    def draws(self, generator: torch.Generator, device):
+        yield "w", trunc_normal(self.w.shape, self.init_scale, generator,
+                                device=device)
         if hasattr(self, "b"):
-            self.b.zero_()
+            yield "b", torch.zeros(self.b.shape, device=device)
+
+    reset_parameters = reset_parameters
 
 
 class RMSNorm(nn.Module):
@@ -133,8 +189,10 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.scale = _param((d,), dtype, device)
 
-    def reset_parameters(self, generator=None) -> None:
-        self.scale.fill_(1.0)
+    def draws(self, generator, device):
+        yield "scale", torch.ones(self.scale.shape, device=device)
+
+    reset_parameters = reset_parameters
 
 
 class LayerNorm(nn.Module):
@@ -143,9 +201,11 @@ class LayerNorm(nn.Module):
         self.scale = _param((d,), dtype, device)
         self.bias = _param((d,), dtype, device)
 
-    def reset_parameters(self, generator=None) -> None:
-        self.scale.fill_(1.0)
-        self.bias.zero_()
+    def draws(self, generator, device):
+        yield "scale", torch.ones(self.scale.shape, device=device)
+        yield "bias", torch.zeros(self.bias.shape, device=device)
+
+    reset_parameters = reset_parameters
 
 
 class Embed(nn.Module):
@@ -155,11 +215,12 @@ class Embed(nn.Module):
         super().__init__()
         self.w = _param((vocab, d), dtype, device)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        w = torch.empty(self.w.shape, dtype=torch.float32,
-                        device=self.w.device)
+    def draws(self, generator: torch.Generator, device):
+        w = torch.empty(self.w.shape, dtype=torch.float32, device=device)
         w.normal_(generator=generator)
-        self.w.copy_(w * self.w.shape[1] ** -0.5)
+        yield "w", w * self.w.shape[1] ** -0.5
+
+    reset_parameters = reset_parameters
 
 
 def dense_init(generator, d_in: int, d_out: int, *, bias: bool = False,

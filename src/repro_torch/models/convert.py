@@ -9,6 +9,9 @@ by the JAX package's ``jax.vmap(self._stage_init)``, is split into
 period, ``stages.<i>.sub_<j>.{mixer, ffn, ...}.*``, for hybrid. No JAX is
 imported: the arrays are plain numpy.
 
+``jax_key(name)`` inverts the key mapping: the JAX path of a port
+parameter, as the JAX package's sharding plans match it.
+
 ``from_jax_state(cfg, state)`` carries a JAX ``TrainState`` (params plus
 ``AdamWState(step, m, v)``, numpy leaves) over: the state dict, and the
 optimizer state with its moments as nested dicts in ``param_tree`` layout
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_jax_params", "from_jax_state"]
+__all__ = ["from_jax_params", "from_jax_state", "jax_key"]
 
 
 def _flatten(tree, prefix: str, out: dict) -> None:
@@ -56,6 +59,18 @@ def from_jax_params(cfg, params) -> dict[str, torch.Tensor]:
         for i in range(n_stages):
             state[f"stages.{i}.{key}"] = _tensor(stacked[i])
     return state
+
+
+def jax_key(name: str) -> tuple[str, bool]:
+    """``(path, stacked)`` of the port's state-dict key ``name``: the JAX
+    parameter's path with its keys joined by ``/`` (``stages.<i>.<key>``,
+    which :func:`from_jax_params` splits from the stacked ``stages/<key>``,
+    maps back to that) and whether the JAX leaf carries the leading stage
+    axis."""
+    parts = name.split(".")
+    if parts[0] == "stages":
+        return "/".join(["stages", *parts[2:]]), True
+    return "/".join(parts), False
 
 
 def _nest(flat: dict) -> dict:

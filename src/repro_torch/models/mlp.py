@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, dense
+from .common import Dense, dense, reset_parameters
 
 __all__ = ["MLP", "mlp_init", "mlp_apply", "activation_fn"]
 
@@ -34,9 +34,7 @@ class MLP(nn.Module):
         if gated:
             self.wg = Dense(d, ff, dtype=dtype, device=device)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for layer in self.children():
-            layer.reset_parameters(generator)
+    reset_parameters = reset_parameters
 
 
 def mlp_init(generator, d: int, ff: int, *, gated: bool, n_layers: int,

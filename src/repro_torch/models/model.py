@@ -21,6 +21,12 @@ cast after, as the JAX package does), and with ``remat`` recomputes each
 stage in the backward pass (``torch.utils.checkpoint``) under the config's
 ``remat_policy``: ``nothing`` keeps a stage's input alone, ``outputs`` also
 its mixer and FFN outputs (each sub-block checkpointed apart).
+
+A sharded LM (``train.sharded.shard_state``) holds DTensor shards and a
+``batch`` group: each sub-block gathers its weights when it runs, inside
+its checkpoint, so a remat recompute gathers them again
+(``models.distributed``); the loss counts the tokens of the whole batch
+and the MoE aux loss routes over it.
 """
 
 from __future__ import annotations
@@ -39,12 +45,14 @@ from .attention import (
     attn_prefill,
     attn_train,
 )
+from .distributed import gathered
 from .common import (
     Dense,
     Embed,
     LayerNorm,
     RMSNorm,
     dense,
+    draws,
     dtype_of,
     layernorm,
     layernorm_np,
@@ -165,6 +173,9 @@ def _at(cache, i: int):
 
 class LM(nn.Module):
     """The decoder LM on ``device`` (None: the CUDA device, or raise).
+    With ``materialize=False`` the parameters are built on meta and take no
+    memory until ``init`` (or ``train.sharded.shard_state``, which keeps a
+    rank's shards alone) draws them on ``device``, one leaf at a time.
 
     ``init(generator)`` draws the parameters; ``load_state_dict`` takes
     converted JAX parameters (``models.convert.from_jax_params``). Then
@@ -176,7 +187,8 @@ class LM(nn.Module):
     package's cache pytree.
     """
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, *,
+                 materialize: bool = True):
         super().__init__()
         if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
             raise ValueError("hybrid needs n_layers % attn_every == 0")
@@ -186,7 +198,8 @@ class LM(nn.Module):
                          if cfg.family == "hybrid" else cfg.n_layers)
         self.compute_dtype = dtype_of(cfg.dtype)
         self.param_dtype = dtype_of(cfg.param_dtype)
-        dt, dev = self.param_dtype, self.device
+        dt = self.param_dtype
+        dev = self.device if materialize else torch.device("meta")
         if cfg.norm_type == "rmsnorm":
             def norm():
                 return RMSNorm(cfg.d_model, dt, dev)
@@ -208,21 +221,25 @@ class LM(nn.Module):
                                  device=dev)
         self._weights = None
         self._weights_key = None
+        self.batch = None       # a sharded LM's BatchGroup
 
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LM":
-        """Draw every parameter from ``generator`` (on the LM's device)."""
-        def reset(module):
-            if hasattr(module, "reset_parameters"):
-                module.reset_parameters(generator)
+        """Draw every parameter from ``generator`` on the LM's device, one
+        leaf at a time (``models.common.draws``); a parameter still on meta
+        (``materialize=False``) is made there."""
+        for name, value in draws(self, generator, self.device):
+            p = self.get_parameter(name)
+            if p.is_meta:
+                owner, _, leaf = name.rpartition(".")
+                setattr(self.get_submodule(owner), leaf, nn.Parameter(
+                    value.to(p.dtype).contiguous(),
+                    requires_grad=p.requires_grad))
             else:
-                for child in module.children():
-                    reset(child)
-        for child in self.children():
-            reset(child)
+                p.copy_(value)
         self._weights = None
         return self
 
@@ -258,6 +275,16 @@ class LM(nn.Module):
         tree["embed"] = {"w": self.embed.w}
         return tree
 
+    def _full(self, tree):
+        """A (sub)tree of weights made whole: gathered from their shards
+        on a sharded LM, as they are otherwise."""
+        return tree if self.batch is None else gathered(tree, self.batch)
+
+    def _top(self, w: dict) -> dict:
+        """``w`` with every weight outside the stages made whole."""
+        return {**self._full({k: v for k, v in w.items() if k != "stages"}),
+                "stages": w["stages"]}
+
     def stage_meta(self) -> list[bool]:
         """is_global per stage (gemma3: one global layer per
         ``global_every``)."""
@@ -279,7 +306,8 @@ class LM(nn.Module):
 
     def _ffn_apply(self, p, x):
         if "moe" in p:
-            return moe_apply(p["moe"], x, self.cfg, mode=self.cfg.moe_mode)
+            return moe_apply(p["moe"], x, self.cfg, mode=self.cfg.moe_mode,
+                             batch=self.batch)
         return (mlp_apply(p["mlp"], x, activation=self.cfg.activation),
                 _zero_aux(x.device))
 
@@ -324,20 +352,23 @@ class LM(nn.Module):
         ffn(norm2(x))`` where it has an FFN. ``mix(kind, p, h, cache,
         is_global)`` runs the mixer. With ``remat_parts`` each mixer and FFN
         block (norm included) is checkpointed apart, so the backward keeps
-        their outputs and recomputes their insides. Returns (x, aux)."""
+        their outputs and recomputes their insides. Each block makes its
+        weights whole as it runs (``_full``). Returns (x, aux)."""
         aux = _zero_aux(x.device)
         for kind, key, sub in self._sublayers(sp):
             c = cache if key is None or cache is None else cache[key]
 
             def mixer(h, kind=kind, sub=sub, c=c):
-                return mix(kind, sub["mixer"], self._norm(sub["norm1"], h),
-                           c, is_global)
+                p = self._full({"norm1": sub["norm1"], "mixer": sub["mixer"]})
+                return mix(kind, p["mixer"], self._norm(p["norm1"], h), c,
+                           is_global)
 
             x = x + (_checkpointed(mixer, x) if remat_parts else mixer(x))
             if "ffn" in sub:
                 def ffn(h, sub=sub):
-                    return self._ffn_apply(sub["ffn"],
-                                           self._norm(sub["norm2"], h))
+                    p = self._full({"norm2": sub["norm2"], "ffn": sub["ffn"]})
+                    return self._ffn_apply(p["ffn"],
+                                           self._norm(p["norm2"], h))
 
                 h, a = _checkpointed(ffn, x) if remat_parts else ffn(x)
                 x = x + h
@@ -360,7 +391,11 @@ class LM(nn.Module):
         optional "prefix_embed"}, tensors or arrays. Returns (scalar loss,
         metrics): the mean cross-entropy over unmasked labels (logits in
         float32) plus 1e-2 x the MoE aux loss / n_layers, differentiable in
-        the parameters; metrics ``ce``, ``tokens`` and the aux counters."""
+        the parameters; metrics ``ce``, ``tokens`` and the aux counters.
+        On a sharded LM ``batch`` holds this rank's rows: the mean is over
+        the whole batch's unmasked labels, so the loss, ``ce`` and the aux
+        terms are this rank's shares (they sum to the whole batch's over
+        the batch's ranks) and ``tokens`` is the whole batch's count."""
         logits, aux = self._forward(self.live_weights(), batch["tokens"],
                                     prefix_embed=batch.get("prefix_embed"),
                                     remat=remat)
@@ -370,7 +405,10 @@ class LM(nn.Module):
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
         nll = (logz - ll) * mask
-        n_tok = torch.clamp_min(mask.sum(), 1)
+        n_tok = mask.sum()
+        if self.batch is not None:
+            self.batch.sum_(n_tok)
+        n_tok = torch.clamp_min(n_tok, 1)
         ce = nll.sum() / n_tok
         total = ce + 1e-2 * aux["moe_aux_loss"] / max(self.cfg.n_layers, 1)
         return total, {"ce": ce, "tokens": n_tok, **aux}
@@ -379,6 +417,7 @@ class LM(nn.Module):
         """The full-sequence forward over the weight copy ``w``; ``remat``
         checkpoints each stage under ``cfg.remat_policy``."""
         cfg = self.cfg
+        w = self._top(w)
         tokens = self._as_long(tokens)
         x = self._embed(w, tokens)
         n_prefix = 0
@@ -451,7 +490,7 @@ class LM(nn.Module):
         cache max_len; checked when they are given on the host).
         Returns (last-token logits (B, V) float32, cache)."""
         cfg = self.cfg
-        w = self.weights()
+        w = self._top(self.weights())
         tokens = self._as_long(tokens)
         b, s = tokens.shape
         lengths = torch.as_tensor(lengths)
@@ -480,7 +519,7 @@ class LM(nn.Module):
         """tokens: (B, 1) current token; lengths: (B,) its position.
         Returns (logits (B, 1, V) float32, cache)."""
         cfg = self.cfg
-        w = self.weights()
+        w = self._top(self.weights())
         tokens = self._as_long(tokens)
         lengths = self._as_long(lengths)
 

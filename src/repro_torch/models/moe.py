@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..sched.moe_dispatch import dispatch_grouped, router_aux_loss
-from .common import Dense, trunc_normal
+from .common import Dense, reset_parameters, trunc_normal
 from .mlp import activation_fn
 
 __all__ = ["MoE", "moe_init", "moe_apply", "moe_capacity"]
@@ -51,14 +51,16 @@ class MoE(nn.Module):
         if cfg.mlp_gated:
             self.wg = p((e, d, ff))
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self.router.reset_parameters(generator)
+    def draws(self, generator: torch.Generator, device):
+        for name, value in self.router.draws(generator, device):
+            yield f"router.{name}", value
         for name, scale in (("wi", self.scale_in), ("wo", self.scale_out),
                             ("wg", self.scale_in)):
             if hasattr(self, name):
-                w = getattr(self, name)
-                w.copy_(trunc_normal(w.shape, scale, generator,
-                                     device=w.device))
+                yield name, trunc_normal(getattr(self, name).shape, scale,
+                                         generator, device=device)
+
+    reset_parameters = reset_parameters
 
 
 def moe_init(generator, cfg, dtype=torch.float32, device=None) -> MoE:
@@ -79,8 +81,12 @@ def _expert_ffn(p, xin, activation, compute_dtype):
     return torch.einsum("gecf,efd->gecd", h, p["wo"].to(compute_dtype))
 
 
-def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter"):
-    """x: (B, S, d) -> (y, aux). Routing group = one sequence."""
+def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter",
+              batch=None):
+    """x: (B, S, d) -> (y, aux). Routing group = one sequence. ``batch``
+    (a ``models.distributed.BatchGroup``): x is this rank's rows of a batch
+    split over ranks, and the aux loss is this rank's share of the whole
+    batch's."""
     b, s, d = x.shape
     compute_dtype = x.dtype
     k = cfg.experts_per_token
@@ -89,7 +95,7 @@ def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter"):
         rebalance = cfg.psts_rebalance
 
     logits = x.float() @ p["router"]["w"]                 # router in f32
-    aux_loss = router_aux_loss(logits, k)
+    aux_loss = router_aux_loss(logits, k, batch)
     res = dispatch_grouped(logits, k=k, capacity=cap, rebalance=rebalance,
                            position_method=cfg.dispatch_positions)
 

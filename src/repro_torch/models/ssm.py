@@ -27,7 +27,7 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.ref import mamba_scan_ref
-from .common import Dense, _param
+from .common import Dense, _param, reset_parameters
 
 __all__ = ["Mamba", "SSMCache", "ssm_init", "ssm_train", "ssm_prefill",
            "ssm_decode", "selective_scan_chunked"]
@@ -74,27 +74,28 @@ class Mamba(nn.Module):
         self.out_proj = Dense(di, d, scale=(di * 2 * cfg.n_layers) ** -0.5,
                               dtype=dtype, device=device)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
+    def draws(self, generator: torch.Generator, device):
         """``ssm_init``'s distributions: S4D-real ``A_log``, inverse-softplus
         ``dt_bias`` of dt log-uniform in [1e-3, 1e-1], ``conv_w`` normal x
         K^-1/2, truncated-normal projections, zero ``conv_b``, unit ``D``."""
-        for layer in (self.in_proj, self.x_proj, self.dt_proj,
-                      self.out_proj):
-            layer.reset_parameters(generator)
+        for layer in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+            for name, value in getattr(self, layer).draws(generator, device):
+                yield f"{layer}.{name}", value
         k, di = self.conv_w.shape
         n = self.A_log.shape[1]
-        dev = self.conv_w.device
-        w = torch.empty((k, di), dtype=torch.float32, device=dev)
+        w = torch.empty((k, di), dtype=torch.float32, device=device)
         w.normal_(generator=generator)
-        self.conv_w.copy_(w * k ** -0.5)
-        self.conv_b.zero_()
-        u = torch.rand((di,), generator=generator, device=dev)
+        yield "conv_w", w * k ** -0.5
+        yield "conv_b", torch.zeros((di,), device=device)
+        u = torch.rand((di,), generator=generator, device=device)
         lo, hi = math.log(1e-3), math.log(0.1)
         dt = torch.exp(u * (hi - lo) + lo)
-        self.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
-        a = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
-        self.A_log.copy_(torch.log(a).expand(di, n))
-        self.D.fill_(1.0)
+        yield "dt_bias", dt + torch.log(-torch.expm1(-dt))
+        a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        yield "A_log", torch.log(a).expand(di, n)
+        yield "D", torch.ones((di,), device=device)
+
+    reset_parameters = reset_parameters
 
 
 def ssm_init(generator, cfg, dtype=torch.float32, device=None) -> Mamba:

@@ -63,8 +63,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm=None):
+    """``tree`` scaled to a global norm of at most ``max_norm``, and that
+    norm (``global_norm(tree)`` unless given)."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 

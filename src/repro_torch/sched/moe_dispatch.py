@@ -216,14 +216,25 @@ def dispatch_grouped(router_logits: torch.Tensor, k: int, capacity: int,
     return _dispatch(router_logits, k, capacity, rebalance, position_method)
 
 
-def router_aux_loss(router_logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Switch/GShard load-balancing loss: E * sum_e f_e * p_e  (+ z-loss)."""
+def router_aux_loss(router_logits: torch.Tensor, k: int,
+                    batch=None) -> torch.Tensor:
+    """Switch/GShard load-balancing loss: E * sum_e f_e * p_e  (+ z-loss).
+
+    With ``batch`` (a ``models.distributed.BatchGroup`` of R > 1 ranks,
+    each holding as many tokens) the logits are this rank's rows of the
+    batch: f is the whole batch's (summed over the ranks, no gradient) and
+    the result this rank's share, (E * sum_e f_e * p_e + 1e-3 * z) / R over
+    its own p and z, so the shares sum to the whole batch's loss."""
     logits = router_logits.float()
     n_exp = logits.shape[-1]
     flat = torch.softmax(logits, dim=-1).reshape(-1, n_exp)
     topk_idx = torch.topk(flat, k, dim=-1).indices
     f = torch.nn.functional.one_hot(topk_idx, n_exp).float().sum(1).mean(0)
     p = flat.mean(0)
+    if batch is not None and batch.ranks > 1:
+        f = batch.sum_(f) / batch.ranks
+        z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        return (n_exp * torch.sum(f * p) + 1e-3 * z) / batch.ranks
     balance = n_exp * torch.sum(f * p)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return balance + 1e-3 * z

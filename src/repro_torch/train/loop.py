@@ -10,6 +10,14 @@ Fault tolerance:
 
 Each step's ``dt`` waits on the device: the loss is read back (``.item()``)
 before the clock stops.
+
+Under a mesh bound with ``launch.mesh.set_mesh`` the loop trains sharded
+(``train.sharded``), the batch's ranks from the ``logical_axis_rules``
+bound with it: the weights are drawn on every rank from the same seed one
+leaf at a time, each cut to the rank's shard before the next (build the
+LM with ``materialize=False`` so that it holds nothing whole first);
+checkpoints are written one gathered leaf at a time by rank 0, in the
+loop's thread, and a resume reads one leaf at a time into the shards.
 """
 
 from __future__ import annotations
@@ -20,11 +28,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.ckpt import Checkpointer, latest_step, restore
 from ..data.pipeline import Pipeline
+from ..launch.mesh import current_mesh
+from ..models.common import current_rules
 from ..optim.adamw import AdamW, AdamWState
 from ..sched.straggler import StragglerMonitor
+from . import sharded
 from .state import TrainState, init_state
 from .step import make_train_step
 
@@ -67,19 +79,42 @@ def _load_into(state: TrainState, restored: TrainState) -> TrainState:
 def train(lm, optimizer: AdamW, lr_schedule, pipeline: Pipeline,
           cfg: LoopConfig, *, monitor: StragglerMonitor | None = None):
     """Run the loop on ``lm``'s device, its weights drawn from a generator
-    seeded ``cfg.seed``; returns (final TrainState, history list)."""
+    seeded ``cfg.seed``, sharded over the bound mesh if there is one;
+    returns (final TrainState, history list)."""
+    generator = torch.Generator(device=lm.device).manual_seed(cfg.seed)
+    mesh, sharding = current_mesh(), None
+    if mesh is None:
+        state = init_state(lm, optimizer, generator)
+    else:
+        rules = current_rules()
+        if rules is None:
+            raise ValueError("a mesh needs its logical_axis_rules bound "
+                             "(launch.shardings.activation_rules)")
+        lm.requires_grad_(True)
+        state, sharding = sharded.shard_state(lm, optimizer, mesh, rules,
+                                              generator)
     step_fn = make_train_step(lm, optimizer, lr_schedule, remat=cfg.remat,
                               clip_norm=cfg.clip_norm,
-                              microbatches=cfg.microbatches)
-    state = init_state(lm, optimizer, torch.Generator(
-        device=lm.device).manual_seed(cfg.seed))
+                              microbatches=cfg.microbatches,
+                              sharding=sharding)
     start = 0
     ckpt = None
+
+    def save(step, metadata):
+        if mesh is None:
+            ckpt.save_async(step, state, metadata=metadata)
+        else:
+            sharded.save(cfg.ckpt_dir, step, state, metadata, cfg.keep_last)
+
     if cfg.ckpt_dir:
         ckpt = Checkpointer(cfg.ckpt_dir, keep_last=cfg.keep_last)
         if latest_step(cfg.ckpt_dir) is not None:
-            restored_step, restored, meta = restore(cfg.ckpt_dir, state)
-            state = _load_into(state, restored)
+            if mesh is None:
+                restored_step, restored, meta = restore(cfg.ckpt_dir, state)
+                state = _load_into(state, restored)
+            else:
+                restored_step, state, meta = sharded.restore(cfg.ckpt_dir,
+                                                             state)
             start = int(restored_step)
 
     stop = {"now": False}
@@ -110,14 +145,15 @@ def train(lm, optimizer: AdamW, lr_schedule, pipeline: Pipeline,
             if cfg.metrics_hook and step % cfg.log_every == 0:
                 cfg.metrics_hook(step, row)
             if ckpt and (step + 1) % cfg.ckpt_every == 0:
-                ckpt.save_async(step + 1, state, metadata={"loss": loss})
+                save(step + 1, {"loss": loss})
             if stop["now"]:
                 break
     finally:
         signal.signal(signal.SIGTERM, old_term)
         signal.signal(signal.SIGINT, old_int)
         if ckpt:
-            final_step = int(state.opt.step)
-            ckpt.save_async(final_step, state, metadata={"final": True})
+            save(int(state.opt.step), {"final": True})
             ckpt.wait()
+            if mesh is not None:    # the files are whole for every rank
+                dist.barrier()
     return state, cfg.history

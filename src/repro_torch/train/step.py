@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.distributed import to_local
 from ..optim.adamw import AdamW, clip_by_global_norm, tree_leaves, tree_map
 from ..optim.compress import CompressionState, compress_tree, decompress
 from .state import TrainState
@@ -25,7 +26,7 @@ class CompressedTrainState(NamedTuple):
 
 def make_train_step(lm, optimizer: AdamW, lr_schedule, *, remat: bool = True,
                     clip_norm: float = 1.0, microbatches: int = 1,
-                    compress_dcn: bool = False):
+                    compress_dcn: bool = False, sharding=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: {"tokens": (B, S), "labels": (B, S), optional "prefix_embed"},
@@ -38,10 +39,23 @@ def make_train_step(lm, optimizer: AdamW, lr_schedule, *, remat: bool = True,
     ``compress_dcn=True`` passes gradients through int8 symmetric
     quantisation with error feedback before the optimizer, one scale per
     JAX-layout leaf (``compress_tree``); the state is then a
-    ``CompressedTrainState`` carrying the EF buffers."""
+    ``CompressedTrainState`` carrying the EF buffers.
+
+    ``sharding`` (``train.sharded.Sharding``, with the state from
+    ``shard_state``): the step of a mesh. The batch is the global one; each
+    rank takes its rows, the gradients are its shards of the whole batch's,
+    the norm counts every element once, the update runs on the shards, and
+    the metrics are the whole batch's. Not with ``compress_dcn``.
+
+    The step's ``loss_grads(params, batch)`` gives (loss, metrics,
+    gradients) alone, without the update (on a mesh: this rank's loss
+    share and gradient shards)."""
+    if sharding is not None and compress_dcn:
+        raise ValueError("compress_dcn is not implemented on a mesh")
 
     def as_tensor(x):
-        return torch.as_tensor(x, device=lm.device)
+        x = torch.as_tensor(x, device=lm.device)
+        return x if sharding is None else sharding.batch.rows(x)
 
     def grads_of(params, batch):
         tensors = tree_leaves(params)
@@ -52,13 +66,16 @@ def make_train_step(lm, optimizer: AdamW, lr_schedule, *, remat: bool = True,
         by_id = {id(p): g for p, g in zip(tensors, grads)}
         tree = tree_map(lambda p: torch.zeros_like(p) if by_id[id(p)] is None
                         else by_id[id(p)], params)
+        if sharding is not None:
+            tree = tree_map(to_local, tree)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             tree
 
     def accumulate(params, batch):
         for x in batch.values():
             assert x.shape[0] % microbatches == 0, (x.shape[0], microbatches)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+        acc = tree_map(lambda p: torch.zeros(to_local(p).shape,
+                                             dtype=torch.float32,
                                              device=p.device), params)
         loss_acc = torch.zeros((), dtype=torch.float32, device=lm.device)
         metrics = {}
@@ -78,11 +95,21 @@ def make_train_step(lm, optimizer: AdamW, lr_schedule, *, remat: bool = True,
         return grads_of(params, batch)
 
     def _core(state: TrainState, grads, loss, metrics):
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        if sharding is None:
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        else:
+            grads, gnorm = clip_by_global_norm(
+                grads, clip_norm, norm=sharding.global_norm(grads))
+            metrics = sharding.reduce_metrics({**metrics, "loss": loss})
+            loss = metrics.pop("loss")
         lr = lr_schedule(state.opt.step)
-        params, opt = optimizer.update(grads, state.opt, state.params, lr)
+        if sharding is None:
+            state = TrainState(*optimizer.update(grads, state.opt,
+                                                 state.params, lr))
+        else:
+            state = sharding.update(optimizer, grads, state, lr)
         metrics = {**metrics, "loss": loss, "grad_norm": gnorm, "lr": lr}
-        return TrainState(params=params, opt=opt), metrics
+        return state, metrics
 
     def train_step(state: TrainState, batch):
         loss, metrics, grads = loss_grads(state.params, batch)
@@ -101,5 +128,7 @@ def make_train_step(lm, optimizer: AdamW, lr_schedule, *, remat: bool = True,
         return (CompressedTrainState(new_inner, CompressionState(errs)),
                 metrics)
 
-    return train_step_compressed if compress_dcn else train_step
+    step = train_step_compressed if compress_dcn else train_step
+    step.loss_grads = loss_grads
+    return step
 

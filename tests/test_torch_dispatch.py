@@ -7,6 +7,7 @@ through both position methods at granite's and jamba's smoke configs. The
 kernel itself runs only on the card (tests/test_torch_cuda.py)."""
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -104,7 +105,11 @@ def test_levels_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA device"):
         dispatch_positions_levels_cuda(topk, 4, 2)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.dispatch_positions_levels(topk.to("meta"), 4, 2)
+        ops.dispatch_positions_levels(
+            SimpleNamespace(device=torch.device("xla")), 4, 2)
+    # meta tensors (the dry run) get the plain version's shapes alone
+    slot, keep, filled = ops.dispatch_positions_levels(topk.to("meta"), 4, 2)
+    assert slot.shape == topk.shape and filled.shape == (2, 4)
 
 
 @pytest.mark.parametrize("method", ["scan", "sort"])

@@ -24,6 +24,7 @@ print(json.dumps({
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "repro")),
     "msgpack": "msgpack" in sys.modules,
+    "fake_pg": "torch.testing._internal.distributed.fake_pg" in sys.modules,
     "built": _build.BUILD_DIR.exists() and any(_build.BUILD_DIR.iterdir()),
     "libs": len(_build._LIBS),
 }))
@@ -107,6 +108,26 @@ def test_training_modules_import_without_jax_repro_or_msgpack(report):
             "train": ("state", "step", "loop"),
             "checkpoint": ("ckpt",),
             "launch": ("train",)}.items():
+        assert f"repro_torch.{sub}" in report["modules"]
+        for mod in mods:
+            assert f"repro_torch.{sub}.{mod}" in report["modules"]
+
+
+def test_distributed_modules_import_without_jax_repro_or_the_fake_backend(
+        report):
+    """The distributed slice: meshes, sharding plans, the sharded step's
+    pieces, the dry run, the roofline and its summary. Importing them
+    starts no process group; the dry run imports the ``fake`` backend only
+    when it runs a cell."""
+    assert report["foreign"] == []
+    assert report["fake_pg"] is False
+    assert report["libs"] == 0
+    for sub, mods in {
+            "launch": ("mesh", "shardings", "dryrun", "roofline",
+                       "summarize"),
+            "models": ("distributed",),
+            "train": ("sharded",),
+            "core": ("scan",)}.items():
         assert f"repro_torch.{sub}" in report["modules"]
         for mod in mods:
             assert f"repro_torch.{sub}.{mod}" in report["modules"]

@@ -4,6 +4,8 @@ it), in float64, plus the dispatch edges the Pallas kernel cannot take
 (E > 128). The CUDA kernels themselves run only on the card: see
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.experimental
 
@@ -221,7 +223,9 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         dispatch_work_prefix_cuda(torch.zeros((1, 3), dtype=torch.int32),
                                   torch.ones((1, 3), dtype=torch.float64), 2)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.prefix_scan(torch.ones(2, 3, device="meta"))
+        ops.prefix_scan(SimpleNamespace(device=torch.device("xla")))
+    # meta tensors (the dry run) take the plain version, for shapes alone
+    assert ops.prefix_scan(torch.ones(2, 3, device="meta")).shape == (2, 3)
 
 
 def test_build_names_a_digest_library_in_the_ignored_build_dir(monkeypatch,

@@ -348,6 +348,10 @@ def test_cli_prints_the_three_keys():
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_cli_refuses_a_mesh(mesh):
-    with pytest.raises(ValueError, match="shardings"):
+    """``--mesh`` trains sharded on a world of the production mesh's size
+    (``tests/test_torch_sharded_ckpt.py`` runs it on a patched one); one
+    process started without a launcher's rank environment is refused
+    before any training."""
+    with pytest.raises(ValueError, match="RANK"):
         train_cli.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu",
                         "--mesh", mesh])
