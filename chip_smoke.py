@@ -218,6 +218,26 @@ Phases, each fatal on failure:
        repro_torch.launch.summarize`` over it: the record parses and its
        state bytes a rank equal the sharding plan's arithmetic for the
        16 x 16 mesh (``plan_state_bytes``).
+    c. the split over ``model``: two child processes
+       (``chip_smoke.py --tp-child RANK PORT OUT SMI LOSSES``), one gloo
+       rank each (NCCL refuses two ranks on one device; tcp://localhost at
+       a free port), share the card on the (1, 2) ("data", "model") mesh:
+       (a) granite-moe-1b-a400m at full width cut to 2 layers, float32
+       (8 of 16 query heads, 4 of 8 KV heads, 16 of 32 experts and half
+       the vocabulary a rank), and (b) falcon-mamba-7b likewise (4,096 of
+       8,192 channels a rank), each one loss and its gradients on 2 x 512
+       tokens against the unsharded LM's on the CPU (the plain versions
+       of the kernels) from the same weights (phase 14d's bounds and
+       near-tie rule; the gradients gathered from the ranks); (c) granite
+       at full width and depth in bf16 trained 3 steps as 15a trains it,
+       its LM drawn on meta: each step's loss within 2e-4 relative and
+       its gradient norm within 3e-2 relative of 15a's (1, 1) run's,
+       14b's launches
+       a step on each rank at the local shapes (printed), step time,
+       tokens/s and each rank's peak memory, and one more loss and its
+       gradients under torch.profiler (gloo's host time, the device's busy
+       time). The ranks' logs stay under build/chip_smoke_tp/ when the
+       phase fails.
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -857,6 +877,9 @@ def phase_kernels_lm(dev):
             ("window", (2, 16, 8, 1000, 64), bf16, {"window": 256}),
             ("soft-cap", (2, 16, 8, 500, 64), bf16, {"softcap": 50.0}),
             ("f32", (2, 16, 8, 1024, 64), f32, {}),
+            # a rank's heads in 15c: (c) bf16 training, (a) float32
+            ("15c(c) split heads", (4, 8, 4, 2048, 64), bf16, {}),
+            ("15c(a) split heads f32", (2, 8, 4, 512, 64), f32, {}),
             ("f32 window+soft-cap", (2, 4, 2, 700, 64), f32,
              {"window": 100, "softcap": 30.0}),
             ("f32 padded", (4, 16, 8, 700, 64), f32,
@@ -1302,6 +1325,7 @@ def phase_kernels_mamba(dev):
             ("bf16 di=37, padded", (2, 77, 3, 37), bf16,
              {"lengths": [5, 77]}),
             ("B=2, S=130 at full width", (2, 130, 16, 8192), f32, {}),
+            ("15c(b) a rank's channels", (2, 512, 16, 4096), f32, {}),
             ("bf16 serve shape, padded", (4, 2048, 16, 8192), bf16,
              {"lengths": [2048, 256, 1000, 1731]})]:
         scan_check(label, shape, dtype, g, dev, **extra)
@@ -2244,7 +2268,10 @@ def phase_kernels_bwd(dev, smi: str):
              {"window": 100, "softcap": 30.0}),
             ("hd 256 window", (1, 4, 2, 200, 256), bf16, {"window": 50}),
             ("hd 256 non-causal", (1, 4, 2, 129, 256), bf16,
-             {"causal": False})]:
+             {"causal": False}),
+            # a rank's heads in 15c: (c) bf16 training, (a) float32
+            ("15c(c) split heads", (4, 8, 4, 2048, 64), bf16, {}),
+            ("15c(a) split heads f32", (2, 8, 4, 512, 64), f32, {})]:
         flash_bwd_check(label, *shape, dtype, g, dev, **extra)
     _, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
     first = flash.flash_attention_bwd_cuda(q, k, v, do, lse)
@@ -2294,7 +2321,8 @@ def phase_kernels_bwd(dev, smi: str):
     # -- mamba_scan_bwd at falcon-train's shape, and edges
     gd = torch.Generator(device=dev).manual_seed(14)
     for shape, dtype in [((2, 37, 3, 36), f32), ((1, 100, 2, 64), bf16),
-                         ((1, 5, 2, 7), f32)]:
+                         ((1, 5, 2, 7), f32),
+                         ((2, 512, 16, 4096), f32)]:   # 15c(b)'s rank
         da = torch.rand(shape, generator=gd, device=dev).to(dtype)
         dbx = torch.randn(shape, generator=gd, device=dev).to(dtype)
         go = torch.randn(shape, generator=gd, device=dev)
@@ -2332,8 +2360,8 @@ def phase_kernels_bwd(dev, smi: str):
     n = da.numel()
     s_bound, s_by = bound_ms(20 * n, 3 * n, FP32_OPS_PER_S)
     log(f"[train-kernels] mamba_scan_bwd {shape} f32: max|err|="
-        f"{scan_err:.3e} (edges: S=37 di=36, bf16 inputs, di=7 all within "
-        f"{SCAN_BWD_TOL} x max)")
+        f"{scan_err:.3e} (edges: S=37 di=36, bf16 inputs, di=7, and 15c(b)'s "
+        f"rank (2, 512, 16, 4096) all within {SCAN_BWD_TOL} x max)")
     scan_bwd = dict(
         name="mamba_scan_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -2497,6 +2525,29 @@ def grads_close(tag, lc, gc, lh, gh):
     return worst
 
 
+def routing_tie(tag, on_a, on_b, k):
+    """None where two runs' dispatches (``(logits, DispatchResult)`` each,
+    in order) routed alike; else the gap of the near tie (below 1e-4, as
+    phase 6) at which a top-k choice flipped. Fails on any other
+    difference."""
+    for (rl, rc), (hl, rh) in zip(on_a, on_b):
+        if all(torch.equal(getattr(rc, f).cpu(), getattr(rh, f).cpu())
+               for f in ("expert_idx", "slot_idx", "keep")):
+            continue
+        top = torch.topk(hl.cpu(), k + 1, dim=-1)
+        gaps = (top.values[..., :-1] - top.values[..., 1:]).min(-1).values
+        flipped = (torch.topk(rl.cpu(), k, dim=-1).indices
+                   != top.indices[..., :k]).any(-1)
+        if not flipped.any():
+            fail(f"{tag}: routing differs with the same top-k choices")
+        tie = gaps[flipped].max().item()
+        if not tie < 1e-4:
+            fail(f"{tag}: top-k differs at a gap of {tie:.3e}, not a near "
+                 f"tie")
+        return tie
+    return None
+
+
 def phase_train_vs_plain(dev):
     """14d: the gradients on the card against the CPU's (plain versions),
     float32, the same weights: olmo-1b at full width (d 2048, hd 128) with
@@ -2552,24 +2603,8 @@ def phase_train_vs_plain(dev):
             calls.clear()
             lh, gh = loss_grads(host, one)
             on_host = list(calls)
-            tie = None
-            for (rl, rc), (hl, rh) in zip(on_card, on_host):
-                if all(torch.equal(getattr(rc, f).cpu(), getattr(rh, f))
-                       for f in ("expert_idx", "slot_idx", "keep")):
-                    continue
-                top = torch.topk(hl, k + 1, dim=-1)
-                gaps = (top.values[..., :-1] - top.values[..., 1:]).min(
-                    -1).values
-                flipped = (torch.topk(rl.cpu(), k, dim=-1).indices
-                           != top.indices[..., :k]).any(-1)
-                if not flipped.any():
-                    fail(f"granite grads row {row}: routing differs with "
-                         f"the same top-k choices")
-                tie = gaps[flipped].max().item()
-                if not tie < 1e-4:
-                    fail(f"granite grads row {row}: top-k differs at a gap "
-                         f"of {tie:.3e}, not a near tie")
-                break
+            tie = routing_tie(f"granite grads row {row}", on_card, on_host,
+                              k)
             if tie is not None:
                 log(f"[train-vs-plain] granite row {row}: top-k decided by a "
                     f"near tie (gap {tie:.2e}); left out")
@@ -2638,6 +2673,16 @@ def phase_restart(smi: str):
 
 MESH_STEPS = 3          # 15a
 MESH_CHILD = "--mesh-child"
+TP_CHILD = "--tp-child"  # 15c: two gloo ranks on the (1, 2) mesh
+TP_RANKS = 2
+TP_TRIES = 3            # 15c(a): batches tried past near ties
+# 15c(c) against 15a's (1, 1) run, each step: bf16 gives losses 4.4e-5
+# and gradient norms 1% apart (H100 SXM), while a loss moves 1e-3 over the
+# 3 steps and a gradient summed wrongly over model moves its norm by more
+TP_LOSS_RTOL = 2e-4
+TP_GNORM_RTOL = 3e-2
+TP_TIMEOUT = 420
+TP_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
 MESH_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh.json"
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
 
@@ -2714,6 +2759,7 @@ def mesh_child(side: str, out: str, smi: str) -> int:
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
         lm, hist, per_step = result[0], result[4], result[5]
         res["losses"] = [row["loss"] for row in hist]
+        res["grad_norms"] = [row["grad_norm"] for row in hist]
         res["counts"] = per_step
         names, params = zip(*lm.named_parameters())
         with ThreadPoolExecutor(8) as pool:   # sha256 lets go of the GIL
@@ -2760,14 +2806,16 @@ def plan_state_bytes(cfg, mesh_shape=(16, 16)) -> int:
 
 def phase_mesh(smi: str):
     """Phase 15; returns 15a's launches of each kernel over its sharded
-    run. 15b runs on the host meanwhile (a CPU-only child: the fake
-    world), so that the phase stays within its time."""
+    run and 15c's over its split runs. 15b runs on the host meanwhile (a
+    CPU-only child: the fake world), so that the phase stays within its
+    time."""
     t15 = time.perf_counter()
     dryrun = start_dryrun()
-    launches = phase_mesh_train(smi)
+    launches, mesh_run = phase_mesh_train(smi)
+    tp = phase_tp(smi, mesh_run)
     phase_dryrun(*dryrun)
     log(f"[phase 15] {time.perf_counter() - t15:.1f}s")
-    return launches
+    return launches, tp
 
 
 def _mesh_side(side: str, smi: str) -> dict:
@@ -2791,7 +2839,8 @@ def _mesh_side(side: str, smi: str) -> dict:
 
 def phase_mesh_train(smi: str):
     """15a: the unsharded and the (1, 1)-mesh run, each in its own child;
-    returns the sharded run's launches."""
+    returns the sharded run's launches and its losses and gradient norms
+    a step."""
     plain = _mesh_side("plain", smi)
     sharded = _mesh_side("mesh", smi)
     if sharded["backend"] != "nccl" or sharded["mesh_shape"] != [
@@ -2816,7 +2865,414 @@ def phase_mesh_train(smi: str):
             f"{res['peak_bytes']:,} bytes ({res['peak_bytes'] / 1e9:.2f} "
             f"GB); child {res['child_s']:.1f}s ({smi})")
     return {name: sum(c[name] for c in sharded["counts"])
-            for name in sharded["counts"][0]}
+            for name in sharded["counts"][0]}, {
+                "losses": sharded["losses"],
+                "grad_norms": sharded["grad_norms"]}
+
+
+@contextlib.contextmanager
+def kernel_shapes():
+    """Records the shapes each kernel's wrapper is called with (first
+    call of each shape), by name: flash (q and k, (B, H, S, hd)), the
+    scan (da, (B, S, N, di)), dispatch positions (the top-k, (G, T, k))."""
+    seen: dict[str, list] = {}
+    real = {name: getattr(ops, name) for name in (
+        "flash_attention", "mamba_scan", "dispatch_positions_levels")}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            shape = [list(a.shape) for a in args[:2]
+                     if isinstance(a, torch.Tensor)]
+            if shape not in seen.setdefault(name, []):
+                seen[name].append(shape)
+            return fn(*args, **kw)
+        return call
+    for name, fn in real.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+
+class _PlainScan(torch.autograd.Function):
+    """The scan's plain versions as a pair, forward (``ref.mamba_scan_ref``)
+    and backward (``ref.mamba_scan_bwd_ref``), as ``ops._MambaScan`` pairs
+    the kernels: autograd through the plain forward's loop would build one
+    full-size gradient buffer a step, S^2 work."""
+
+    @staticmethod
+    def forward(ctx, da, dbx):
+        h = ref.mamba_scan_ref(da, dbx)
+        ctx.save_for_backward(da, h)
+        ctx.dtypes = (da.dtype, dbx.dtype)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        da, h = ctx.saved_tensors
+        gda, gdbx = ref.mamba_scan_bwd_ref(da, h, g)
+        return gda.to(ctx.dtypes[0]), gdbx.to(ctx.dtypes[1])
+
+
+@contextlib.contextmanager
+def plain_scan_pair():
+    """``ops.mamba_scan`` on CPU tensors through ``_PlainScan``."""
+    real = ops.mamba_scan
+    ops.mamba_scan = _PlainScan.apply
+    try:
+        yield
+    finally:
+        ops.mamba_scan = real
+
+
+def tp_grads(tag, cfg, mesh, dev, rank, expected):
+    """15c(a), (b): ``cfg``'s loss and gradients (float32, remat on) with
+    the compute split over the (1, 2) mesh's ``model`` axis, the kernels
+    on the rank's heads and channels, against the unsharded LM's on the
+    CPU (rank 0), which runs their plain versions (the scan's forward and
+    backward as a pair, ``_PlainScan``), from the same weights
+    (a CUDA generator seeded 0, drawn one leaf at a time into the shards)
+    and batch: the loss within LOSS_RTOL relative, every gradient,
+    gathered from the ranks, within GRAD_TOL x its leaf's max|g| (phase
+    14d's bounds). A batch whose
+    top-k flips at a near tie between the two runs is reported and the
+    next one tried (rank 0 decides, the ranks agree by a broadcast). The
+    split run's launches must equal ``expected``. Returns the record."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.shardings import activation_rules
+    from repro_torch.models.distributed import gather_full
+    from repro_torch.optim import constant
+    from repro_torch.optim.adamw import tree_items
+    from repro_torch.train.sharded import shard_state
+
+    t_case = time.perf_counter()
+    lm = LM(cfg, device=dev, materialize=False).requires_grad_(True)
+    opt = AdamW()
+    state, sharding = shard_state(
+        lm, opt, mesh, activation_rules(cfg, mesh),
+        torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(lm, opt, constant(TRAIN_LR), remat=True,
+                           sharding=sharding)
+    ref = card_and_host(cfg, dev)[1] if rank == 0 else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(5)
+    calls = []
+    plain_dispatch = moe_mod.dispatch_grouped
+
+    def recording(logits, **kw):
+        res = plain_dispatch(logits, **kw)
+        calls.append((logits.detach(), res))
+        return res
+    rec = {"split": sharding.split.flags()}
+    moe_mod.dispatch_grouped = recording
+    try:
+        for attempt in range(TP_TRIES):
+            tokens = rng.integers(0, cfg.vocab_size, (GRAD_ROWS, GRAD_SEQ))
+            labels = np.roll(tokens, -1, axis=1)
+            labels[:, -1] = -1
+            batch = {"tokens": tokens, "labels": labels}
+            calls.clear()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with kernel_shapes() as shapes:
+                loss, _, grads = step.loss_grads(state.params, batch)
+            torch.cuda.synchronize()
+            rec["split_s"] = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            want = {name: expected.get(name, 0) for name in counts}
+            if counts != want:
+                fail(f"{tag}: launches {counts}, expected {want}")
+            rec["counts"], rec["shapes"] = counts, shapes
+            whole = {".".join(p): gather_full(g, mesh, sharding.param[p])
+                     for p, g in tree_items(grads)}
+            again = torch.zeros((), device=dev)
+            if rank == 0:
+                on_split = list(calls)
+                calls.clear()
+                t_ref = time.perf_counter()
+                with plain_scan_pair():
+                    lh, gh = loss_grads(ref, batch)
+                rec["plain_s"] = time.perf_counter() - t_ref
+                tie = routing_tie(tag, on_split, list(calls),
+                                  cfg.experts_per_token)
+                if tie is None:
+                    rec["worst"] = grads_close(tag, loss, whole, lh, gh)
+                    rec["loss"], rec["plain_loss"] = loss.item(), lh.item()
+                else:
+                    log(f"[{tag}] batch {attempt}: top-k decided by a near "
+                        f"tie (gap {tie:.2e}) between the split and the "
+                        f"unsharded run; the next batch")
+                    again.fill_(1.0)
+                del gh
+            dist.broadcast(again, src=dist.get_global_rank(
+                mesh.get_group("model"), 0), group=mesh.get_group("model"))
+            del whole, grads
+            if not again.item():
+                break
+        else:
+            fail(f"{tag}: every batch diverged at a near tie")
+    finally:
+        moe_mod.dispatch_grouped = plain_dispatch
+    rec["attempts"] = attempt + 1
+    log(f"[tp-{rank}] {tag}: split loss and gradients {rec['split_s']:.2f}s"
+        f", the unsharded on the CPU {rec.get('plain_s', 0.0):.2f}s, "
+        f"{time.perf_counter() - t_case:.1f}s for the case")
+    rec["local_bytes"] = sum(p.to_local().numel() * p.to_local().element_size()
+                             for p in lm.parameters())
+    rec["whole_bytes"] = sum(p.numel() * p.element_size()
+                             for p in lm.parameters())
+    del lm, state, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_profile(lm, pipe, dev) -> dict:
+    """One more loss and gradients of 15c(c)'s split LM (the step without
+    its update) under torch.profiler: the wall, the host time inside gloo's
+    collectives (``gloo:`` events) and the device's busy time, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: lm.batch.rows(torch.as_tensor(v, device=dev))
+             for k, v in pipe.batch(MESH_STEPS)[0].items()}
+    params = list(lm.parameters())
+
+    def run():
+        loss, _ = lm.loss(batch, remat=True)
+        torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    gloo = [e for e in events if e.key.startswith("gloo:")]
+    return {"wall_ms": wall * 1e3,
+            "gloo_ms": sum(e.cpu_time_total for e in gloo) / 1e3,
+            "gloo_calls": sum(e.count for e in gloo),
+            "gloo_kinds": sorted({e.key for e in gloo}),
+            "busy_ms": sum(getattr(e, "self_device_time_total", 0.0)
+                           for e in events if e.device_type
+                           == torch.autograd.DeviceType.CUDA) / 1e3}
+
+
+def tp_child(rank: int, port: int, out: str, smi: str, want: str) -> int:
+    """15c, rank ``rank`` of two processes sharing the card: a gloo world
+    (tcp://localhost at ``port``) and the (1, 2) ("data", "model") mesh on
+    it, then (a) granite at full width cut to 2 layers and (b) falcon-
+    mamba-7b at full width cut to 2 layers, float32, against the
+    unsharded LM (``tp_grads``), and (c) granite at full width and depth
+    in bf16 trained MESH_STEPS steps through ``run_train`` under
+    ``set_mesh`` and the mesh's activation rules, as ``launch.train``
+    trains, its LM built on meta and drawn one leaf at a time: each step's
+    launches 14b's, its loss within TP_LOSS_RTOL and its gradient norm
+    within TP_GNORM_RTOL relative of ``want``'s (15a's (1, 1) run, JSON).
+    Writes its record to ``out`` as JSON. On an error it prints it and
+    leaves at once, without the group's teardown, which would wait on the
+    other rank; a rank still running after TP_TIMEOUT less 30 s prints
+    every thread's stack."""
+    import faulthandler
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.shardings import activation_rules
+    from repro_torch.models.common import logical_axis_rules
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    faulthandler.dump_traceback_later(TP_TIMEOUT - 30, exit=False)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TP_RANKS, rank=rank)
+    try:
+        res = {"rank": rank, "backend": dist.get_backend(),
+               "init_s": time.perf_counter() - t0}
+        mesh = init_device_mesh("cuda", (1, TP_RANKS),
+                                mesh_dim_names=("data", "model"))
+        res["mesh_shape"] = [list(mesh.shape), list(mesh.mesh_dim_names)]
+        n = GRAD_LAYERS
+        granite = dataclasses.replace(get_config(ARCH), n_layers=n,
+                                      dtype="float32")
+        res["a"] = tp_grads("tp-granite-grads", granite, mesh, dev, rank,
+                            {"flash_attention": 2 * n,
+                             "flash_attention_bwd": n,
+                             "dispatch_positions": 2 * n})
+        falcon = dataclasses.replace(get_config(SSM_ARCH), n_layers=n,
+                                     dtype="float32")
+        res["b"] = tp_grads("tp-falcon-grads", falcon, mesh, dev, rank,
+                            {"mamba_scan": 2 * n, "mamba_scan_bwd": n})
+        cfg = get_config(ARCH)
+        n = cfg.n_layers
+        expected = {"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
+                    "flash_attention_bwd": n, "flash_attention_bwd_tc": n,
+                    "dispatch_positions": 2 * n}
+        with set_mesh(mesh), logical_axis_rules(activation_rules(cfg,
+                                                                 mesh)):
+            with kernel_shapes() as shapes:
+                result = run_train(f"tp-{rank}", cfg, dev, smi,
+                                   shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
+                                   steps=MESH_STEPS, expected=expected,
+                                   materialize=False)
+            lm, pipe, hist, per_step = (result[0], result[3], result[4],
+                                        result[5])
+            profiled = tp_profile(lm, pipe, dev)
+        losses = [row["loss"] for row in hist]
+        norms = [row["grad_norm"] for row in hist]
+        want = json.loads(want)
+        for got, ref, tol in ((losses, want["losses"], TP_LOSS_RTOL),
+                              (norms, want["grad_norms"], TP_GNORM_RTOL)):
+            if len(got) != len(ref) or not all(
+                    abs(a - b) <= tol * abs(b) for a, b in zip(got, ref)):
+                fail(f"tp-{rank}: {got} against the (1, 1) run's {ref} "
+                     f"(bound {tol} relative)")
+        res["c"] = {"losses": losses, "grad_norms": norms,
+                    "counts": per_step,
+                    "dts": [row["dt"] for row in hist],
+                    "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "shapes": shapes, "profile": profiled,
+                    "split": lm.split.flags(),
+                    "wq_local": list(
+                        lm.stages[0].attn.wq.w.to_local().shape),
+                    "experts_local": len(lm.stages[0].ffn.moe.wi.to_local()),
+                    "local_bytes": sum(
+                        p.to_local().numel() * p.to_local().element_size()
+                        for p in lm.parameters())}
+    except BaseException as exc:
+        log(f"[tp-{rank}] {type(exc).__name__}: {exc}")
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def phase_tp(smi: str, mesh_run: dict) -> dict:
+    """15c: two processes, one gloo rank each, share the card on the
+    (1, 2) mesh (``tp_child``); both must end within TP_TIMEOUT. Returns
+    the launches of each kernel over (c)'s run on rank 0, the scan's from
+    (b)."""
+    import socket
+
+    TP_OUT.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for rank in range(TP_RANKS):
+        (TP_OUT / f"rank{rank}.json").unlink(missing_ok=True)
+        logs.append(open(TP_OUT / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), TP_CHILD,
+             str(rank), str(port), str(TP_OUT / f"rank{rank}.json"), smi,
+             json.dumps(mesh_run)], stdout=logs[-1],
+            stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        # until both end, one fails (the other may wait on it) or the time
+        # is up
+        while time.monotonic() < deadline and not all(
+                proc.poll() == 0 for proc in procs) and not any(
+                proc.poll() for proc in procs):
+            time.sleep(0.5)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    texts = [(TP_OUT / f"rank{r}.log").read_text() for r in range(TP_RANKS)]
+    for line in texts[0].splitlines():
+        if line.startswith("[tp-"):
+            log(line)
+    for line in texts[1].splitlines():
+        if line.startswith("[tp-1]"):
+            log(line)
+    codes = [proc.returncode for proc in procs]
+    if codes != [0] * TP_RANKS:
+        fail(f"tp: the ranks exited {codes} after {wall:.1f}s: "
+             f"{texts[0][-2500:]} || {texts[1][-2500:]}")
+    ranks = [json.loads((TP_OUT / f"rank{r}.json").read_text())
+             for r in range(TP_RANKS)]
+    r0 = ranks[0]
+    if any(r["backend"] != "gloo" or r["mesh_shape"] != [
+            [1, TP_RANKS], ["data", "model"]] for r in ranks):
+        fail(f"tp: backends {[r['backend'] for r in ranks]}, meshes "
+             f"{[r['mesh_shape'] for r in ranks]}")
+    for case, keys in (("a", ("heads", "ff", "vocab", "experts")),
+                       ("b", ("vocab", "inner"))):
+        if not all(r[case]["split"][k] for r in ranks for k in keys):
+            fail(f"tp: case {case} did not split {keys}: "
+                 f"{[r[case]['split'] for r in ranks]}")
+    c = [r["c"] for r in ranks]
+    if c[0]["losses"] != c[1]["losses"] or \
+            c[0]["grad_norms"] != c[1]["grad_norms"]:
+        fail(f"tp: the ranks' losses or gradient norms differ: "
+             f"{c[0]['losses']} {c[0]['grad_norms']}, {c[1]['losses']} "
+             f"{c[1]['grad_norms']}")
+    if not all(r["split"]["heads"] and r["split"]["experts"]
+               and r["split"]["vocab"] for r in c):
+        fail(f"tp: case c's split {[r['split'] for r in c]}")
+    for case, name in (("a", ARCH), ("b", SSM_ARCH)):
+        rec = r0[case]
+        log(f"[tp] {name} x {GRAD_LAYERS} layers f32 ({GRAD_ROWS}x"
+            f"{GRAD_SEQ}) on the (1, 2) mesh, split {rec['split']}: loss "
+            f"{rec['loss']:.6f} vs unsharded on the CPU (plain versions) "
+            f"{rec['plain_loss']:.6f}, every "
+            f"gradient within {rec['worst']:.3e} x its max|g| (bound "
+            f"{GRAD_TOL}; batch {rec['attempts']} of {TP_TRIES}); "
+            f"launches {dict((k, v) for k, v in rec['counts'].items() if v)}"
+            f", local shapes {rec['shapes']}; a rank holds "
+            f"{rec['local_bytes'] / 1e9:.3f} of {rec['whole_bytes'] / 1e9:.3f}"
+            f" GB of weights; {rec['split_s']:.2f}s for the split loss and "
+            f"gradients")
+    tokens = TRAIN_SHARDS * TRAIN_ROWS * TRAIN_SEQ
+    for r in c:
+        steady = r["dts"][1:] or r["dts"]
+        mean_dt = sum(steady) / len(steady)
+        r["mean_dt"] = mean_dt
+    log(f"[tp] {ARCH} full width and depth bf16 on the (1, 2) mesh, "
+        f"{MESH_STEPS} steps: losses {c[0]['losses']} vs the (1, 1) run's "
+        f"{mesh_run['losses']} (bound {TP_LOSS_RTOL} relative), gradient "
+        f"norms {c[0]['grad_norms']} vs {mesh_run['grad_norms']} (bound "
+        f"{TP_GNORM_RTOL} relative); wq local "
+        f"{c[0]['wq_local']}, {c[0]['experts_local']} experts a rank; "
+        f"step time {c[0]['mean_dt'] * 1e3:.1f} / {c[1]['mean_dt'] * 1e3:.1f}"
+        f" ms (ranks 0 / 1, steps 1-{MESH_STEPS - 1}), "
+        f"{tokens / c[0]['mean_dt']:.0f} tokens/s, peak "
+        f"{c[0]['peak_bytes']:,} / {c[1]['peak_bytes']:,} bytes "
+        f"({c[0]['peak_bytes'] / 1e9:.2f} / {c[1]['peak_bytes'] / 1e9:.2f} "
+        f"GB), weights {c[0]['local_bytes'] / 1e9:.3f} GB a rank; launches "
+        f"a step {c[0]['counts'][-1]}, local shapes {c[0]['shapes']}; "
+        f"gloo up in {r0['init_s']:.2f}s, 15c {wall:.1f}s ({smi})")
+    for r, res in enumerate(c):
+        prof = res["profile"]
+        log(f"[tp] rank {r}, one loss and gradients under torch.profiler: "
+            f"{prof['wall_ms']:.1f} ms, of it {prof['gloo_ms']:.1f} ms of "
+            f"host time in {prof['gloo_calls']} gloo collectives "
+            f"({', '.join(prof['gloo_kinds'])}), device busy "
+            f"{prof['busy_ms']:.1f} ms ({smi})")
+    launches = {name: sum(s[name] for s in c[0]["counts"])
+                for name in c[0]["counts"][0]}
+    launches["mamba_scan"] = r0["b"]["counts"]["mamba_scan"]
+    launches["mamba_scan_bwd"] = r0["b"]["counts"]["mamba_scan_bwd"]
+    shutil.rmtree(TP_OUT, ignore_errors=True)
+    return launches
 
 
 def start_dryrun():
@@ -2976,10 +3432,12 @@ def main() -> int:
     kernels[-1]["falcon_train_launches"] = falcon["mamba_scan"]
     kernels += records
     torch.cuda.empty_cache()
-    mesh = phase_mesh(smi)
+    mesh, tp = phase_mesh(smi)
     for k in kernels:
         if k["name"] in mesh:
             k["mesh_launches"] = mesh[k["name"]]
+        if k["name"] in tp:
+            k["tp_launches"] = tp[k["name"]]
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2998,4 +3456,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [MESH_CHILD]:
         sys.exit(mesh_child(sys.argv[2], sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == [TP_CHILD]:
+        sys.exit(tp_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                          sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -37,11 +37,15 @@ The record has the JAX package's keys (``src/repro/launch/dryrun.py``):
   * ``lower_s``: seconds to build and place the state; ``compile_s``:
     seconds of the counted step.
 
-Model-axis ranks compute the same rows (the port has no tensor-parallel
-compute), so ``useful_compute_ratio`` is about 1 / the model axis's size.
-The serve cells run on the rank's rows of the cache at its full length
-(the cache's sequence split over ``model`` counts in its bytes; the port
-has no sequence-parallel attention).
+The train cells compute each model-axis rank's share of its rows
+(``models.distributed``'s split: heads, ff columns, experts, vocabulary
+columns, Mamba channels; a dim the plans leave whole, such as granite's 8
+KV heads on 16 ranks, is computed on every rank), so their FLOPs and the
+activations' all-reduces over ``model`` are the split step's. The serve
+cells gather every weight whole and run on the rank's rows of the cache at
+its full length (the cache's sequence split over ``model`` counts in its
+bytes; the port has no sequence-parallel attention), so their
+``useful_compute_ratio`` stays about 1 / the model axis's size.
 
 Import this module only to run a cell: it starts the fake world itself
 (``torch.testing._internal.distributed.fake_pg``), never at import.

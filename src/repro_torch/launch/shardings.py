@@ -34,12 +34,13 @@ from torch.distributed.tensor import Replicate, Shard
 from ..configs.base import ModelConfig, ShapeSpec
 from ..models.attention import KVCache
 from ..models.convert import jax_key
+from ..models.distributed import ModelSplit
 from ..models.ssm import SSMCache
 from .mesh import mesh_axis_sizes
 
-__all__ = ["moe_layout", "activation_rules", "param_pspecs",
-           "moment_pspecs", "state_pspecs", "batch_pspecs", "cache_pspecs",
-           "placements"]
+__all__ = ["moe_layout", "activation_rules", "compute_split",
+           "param_pspecs", "moment_pspecs", "state_pspecs", "batch_pspecs",
+           "cache_pspecs", "placements"]
 
 
 def _fit(dim: int, size: int, axis):
@@ -117,6 +118,37 @@ def activation_rules(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None
         rules["moe_group"] = rules["batch"]
         rules["moe_ff"] = "model"
     return rules
+
+
+def compute_split(cfg: ModelConfig, mesh, rules: dict | None = None
+                  ) -> dict[str, bool]:
+    """Which dims the train step computes split over ``model``, read from
+    the activation rules (``rules``, default this config's on ``mesh``) and
+    fitted as the parameter plans cut the weights: ``heads`` and
+    ``kv_heads`` (query and KV heads), ``ff`` (the MLPs' hidden dim),
+    ``vocab`` (the padded vocabulary), ``experts`` (``moe_layout``'s
+    ``e_ax == "model"``), ``moe_ff`` (the experts' hidden dim: the legacy
+    layout, or ``act_ff == "model"``) and ``inner`` (Mamba's channels,
+    which the JAX package constrains by the ``ff`` rule). All False on a
+    model axis of size 1 (or none): the step computes as without a mesh."""
+    ax = mesh_axis_sizes(mesh)
+    m = ax.get("model", 1)
+    if m == 1:
+        return dict.fromkeys(ModelSplit.KEYS, False)
+    rules = activation_rules(cfg, mesh) if rules is None else rules
+
+    def on(logical: str, dim: int) -> bool:
+        return rules.get(logical) == "model" and dim % m == 0
+
+    heads = on("heads", cfg.n_heads or 1) and cfg.n_heads > 0
+    return {"heads": heads,
+            "kv_heads": heads and on("kv_heads", cfg.n_kv_heads or 1),
+            "ff": cfg.family != "ssm" and on("ff", cfg.d_ff or 1),
+            "vocab": on("vocab", cfg.vocab_padded),
+            "experts": cfg.n_experts > 0 and rules.get("experts") == "model",
+            "moe_ff": (cfg.n_experts > 0 and rules.get("experts") != "model"
+                       and on("moe_ff", cfg.d_ff)),
+            "inner": cfg.is_ssm and on("ff", cfg.d_inner)}
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,17 @@ Two execution paths, as in the JAX package:
   PyTorch, memory-bound by design (no TPU kernel computes it either).
 
 Layout at every public function is the JAX package's: q (B, S, H, hd), k
-and v (B, S, KV, hd), caches (B, L, KV, hd). The caches are written in
+and v (B, S, KV, hd), caches (B, L, KV, hd).
+
+Under a split over ``model`` (``attn_train``'s ``split``, a
+``models.distributed.ModelSplit`` with ``heads``) a rank projects and
+attends its H/m query heads, from its columns of ``wq``, and its rows of
+``wo`` make the output a partial sum, all-reduced. Where the KV heads
+split too (``kv_heads``) it projects its KV/m heads; where they do not, it
+projects the KV heads its query heads read, from their columns of the
+whole ``wk`` and ``wv`` (``local_kv_heads``), so the kernel sees GQA's
+head-to-group map of the whole model. ``split_modes`` says how the split
+uses each weight. The caches are written in
 place (prefill fills rows ``[0, S)``, decode row ``lengths``), where the
 JAX package returns updated copies: the serving engine's caches are the
 largest tensors on the card.
@@ -25,10 +35,12 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.ref import flash_attention_ref
-from .common import Dense, dense, reset_parameters, rope
+from .common import Dense, dense, dense_row, reset_parameters, rope
+from .distributed import LOCAL, PARTS, WHOLE, columns
 
 __all__ = ["Attention", "KVCache", "attn_init", "attn_train", "attn_prefill",
-           "attn_decode", "chunked_attention"]
+           "attn_decode", "chunked_attention", "local_kv_heads",
+           "split_modes"]
 
 _NEG = -2.0 ** 30  # large-negative mask value safe in bf16/f32
 
@@ -86,11 +98,12 @@ def _softcap(logits, cap):
 
 
 def _project_qkv(p, x, cfg, positions, compute_dtype):
+    """q, k, v over the heads the weights hold (all, or a rank's)."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    q = dense(p["wq"], x, compute_dtype).reshape(b, s, cfg.n_heads, hd)
-    k = dense(p["wk"], x, compute_dtype).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(p["wv"], x, compute_dtype).reshape(b, s, cfg.n_kv_heads, hd)
+    q = dense(p["wq"], x, compute_dtype).reshape(b, s, -1, hd)
+    k = dense(p["wk"], x, compute_dtype).reshape(b, s, -1, hd)
+    v = dense(p["wv"], x, compute_dtype).reshape(b, s, -1, hd)
     if cfg.pos_embed == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -119,16 +132,59 @@ def chunked_attention(q, k, v, *, q_positions, kv_positions, window=None,
     return out.transpose(1, 2)
 
 
-def attn_train(p, x, cfg, *, positions=None, is_global=True):
+def split_modes(split) -> dict:
+    """How the split uses each weight (``models.distributed``): ``wq``
+    and ``wo`` keep their shards of the rank's query heads, ``wk`` and
+    ``wv`` theirs where the KV heads split too, else they are gathered
+    whole and the rank uses its heads' groups' columns (parts)."""
+    heads = LOCAL if split.heads else WHOLE
+    kv = LOCAL if split.kv_heads else PARTS if split.heads else WHOLE
+    return {"wq": heads, "wo": heads, "wk": kv, "wv": kv}
+
+
+def local_kv_heads(cfg, split) -> tuple[int, int, torch.Tensor | None]:
+    """Where the KV heads do not split over ``model``: (first, count) of
+    the KV heads a rank's H/m query heads read, and ``None`` where they
+    all lie in the one group, else each query head's own KV head among
+    them (the rank's attention is then multi-head over them)."""
+    n_local = cfg.n_heads // split.size
+    rep = cfg.n_heads // cfg.n_kv_heads
+    first_q = split.block(n_local)
+    first = first_q // rep
+    count = (first_q + n_local - 1) // rep + 1 - first
+    if count == 1:
+        return first, 1, None
+    return first, count, torch.arange(first_q, first_q + n_local) // rep \
+        - first
+
+
+def attn_train(p, x, cfg, *, positions=None, is_global=True, split=None):
     """Self-attention over a full sequence (train / prefill without
-    padding): positions 0..S-1, the flash kernel's index mask."""
+    padding): positions 0..S-1, the flash kernel's index mask. With
+    ``split.heads`` the weights are this rank's heads' (module
+    docstring)."""
     compute_dtype = x.dtype
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
+    tp = split is not None and split.heads
+    index = None
+    if tp:
+        x = split.copy_to(x)
+        if not split.kv_heads:
+            first, count, index = local_kv_heads(cfg, split)
+            hd = [(first * cfg.head_dim_, count * cfg.head_dim_)]
+            p = {**p, **{key: {k: columns(w, hd) for k, w in p[key].items()}
+                         for key in ("wk", "wv")}}
     q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
+    if index is not None:
+        index = index.to(k.device)
+        k, v = k[:, :, index], v[:, :, index]
     out = _flash(q, k, v, window=None if is_global else cfg.sliding_window,
                  softcap=cfg.attn_logit_softcap)
+    if tp:
+        return dense_row(p["wo"], out.reshape(b, s, -1), split,
+                         compute_dtype)
     return dense(p["wo"], out.reshape(b, s, -1), compute_dtype)
 
 

@@ -14,8 +14,11 @@ shardings.activation_rules``) for the duration of a ``with`` block, as the
 JAX package's does; the sharded train step reads the ``batch`` axes it
 splits the batch over from them when it is built. The JAX package's
 ``shard`` (an activation sharding constraint for XLA) has no counterpart:
-the port's sharded step gathers weights and splits the batch itself
-(``models.distributed``).
+the port's sharded step gathers weights, splits the batch and splits the
+compute over ``model`` itself (``models.distributed``). There a
+column-parallel product is ``dense`` on a weight's local column block, fed
+an input through ``ModelSplit.copy_to``; ``dense_row`` is the row-parallel
+one; ``embed_rows`` looks tokens up in a table split by vocabulary rows.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 from torch import nn
 
 __all__ = [
-    "logical_axis_rules", "current_rules", "dtype_of", "dense", "rmsnorm",
+    "logical_axis_rules", "current_rules", "dtype_of", "dense", "dense_row",
+    "embed_rows", "rmsnorm",
     "layernorm", "layernorm_np", "rope",
     "sinusoidal_positions", "trunc_normal", "Dense", "RMSNorm", "LayerNorm",
     "Embed", "dense_init", "embed_init", "param_tree", "draws",
@@ -72,6 +76,35 @@ def dense(p, x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(compute_dtype)
     return y
+
+
+def dense_row(p, x: torch.Tensor, split, compute_dtype=torch.bfloat16
+              ) -> torch.Tensor:
+    """Row-parallel ``dense``: ``x`` holds this rank's block of the
+    contraction dim and ``p["w"]`` the same block of rows; the partial
+    products are summed over ``model`` (``split``, a
+    ``models.distributed.ModelSplit``) and the bias, whole, added once."""
+    y = split.reduce_from(x.to(compute_dtype) @ p["w"].to(compute_dtype))
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+def embed_rows(w: torch.Tensor, tokens: torch.Tensor, split=None
+               ) -> torch.Tensor:
+    """``w[tokens]``. With ``split.vocab`` ``w`` is this rank's block of
+    the table's rows: each rank looks up the tokens in its block, zeros
+    for the others, and the lookups are summed over ``model`` (one term of
+    each sum is not zero, so the sum is the row exactly)."""
+    if split is None or not split.vocab:
+        return w[tokens]
+    n = w.shape[0]
+    idx = tokens - split.block(n)
+    mine = (idx >= 0) & (idx < n)
+    rows = w[idx.clamp(0, n - 1)]
+    return split.reduce_from(torch.where(
+        mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                           device=rows.device)))
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -7,9 +7,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, dense, reset_parameters
+from .common import Dense, dense, dense_row, reset_parameters
+from .distributed import LOCAL
 
-__all__ = ["MLP", "mlp_init", "mlp_apply", "activation_fn"]
+__all__ = ["MLP", "mlp_init", "mlp_apply", "activation_fn", "split_modes"]
 
 
 def activation_fn(name: str):
@@ -46,11 +47,27 @@ def mlp_init(generator, d: int, ff: int, *, gated: bool, n_layers: int,
     return m
 
 
-def mlp_apply(p, x: torch.Tensor, *, activation: str) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, *, activation: str, split=None
+              ) -> torch.Tensor:
+    """``wo(act(wg x) * wi x)`` (or ``wo(act(wi x))``). With ``split.ff``
+    (a ``models.distributed.ModelSplit``) the weights are this rank's ff
+    columns of ``wi``/``wg`` and rows of ``wo``: column- then row-parallel,
+    one all-reduce forward and one backward."""
     act = activation_fn(activation)
+    tp = split is not None and split.ff
+    if tp:
+        x = split.copy_to(x)
     h = dense(p["wi"], x, x.dtype)
     if "wg" in p:
         h = act(dense(p["wg"], x, x.dtype)) * h
     else:
         h = act(h)
+    if tp:
+        return dense_row(p["wo"], h, split, x.dtype)
     return dense(p["wo"], h, x.dtype)
+
+
+def split_modes(split) -> dict:
+    """How the split uses each weight (``models.distributed``): with
+    ``split.ff`` every one keeps its shard of the ff columns."""
+    return dict.fromkeys(("wi", "wg", "wo"), LOCAL) if split.ff else {}

@@ -22,11 +22,17 @@ stage in the backward pass (``torch.utils.checkpoint``) under the config's
 ``remat_policy``: ``nothing`` keeps a stage's input alone, ``outputs`` also
 its mixer and FFN outputs (each sub-block checkpointed apart).
 
-A sharded LM (``train.sharded.shard_state``) holds DTensor shards and a
-``batch`` group: each sub-block gathers its weights when it runs, inside
-its checkpoint, so a remat recompute gathers them again
-(``models.distributed``); the loss counts the tokens of the whole batch
-and the MoE aux loss routes over it.
+A sharded LM (``train.sharded.shard_state``) holds DTensor shards, a
+``batch`` group and a ``split`` over ``model`` (``models.distributed``):
+each sub-block gathers its weights when it runs, inside its checkpoint, so
+a remat recompute gathers them again and issues the split's collectives
+again; the loss counts the tokens of the whole batch and the MoE aux loss
+routes over it. The full-sequence forward (``loss``, ``apply``) computes
+each model rank's share: its heads, ff columns, experts, Mamba channels
+and vocabulary columns. The loss takes the log-sum-exp and the label's
+logit over the split vocabulary (``_split_logz_ll``); ``apply`` gathers
+the logits whole. ``prefill`` and ``decode_step`` gather every weight
+whole.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from .attention import (
     attn_prefill,
     attn_train,
 )
-from .distributed import gathered
+from .attention import split_modes as attn_modes
+from .distributed import LOCAL, PARTS, WHOLE, columns, gathered
 from .common import (
     Dense,
     Embed,
@@ -54,6 +61,7 @@ from .common import (
     dense,
     draws,
     dtype_of,
+    embed_rows,
     layernorm,
     layernorm_np,
     param_tree,
@@ -61,8 +69,11 @@ from .common import (
     sinusoidal_positions,
 )
 from .mlp import MLP, mlp_apply
+from .mlp import split_modes as mlp_modes
 from .moe import MoE, moe_apply
+from .moe import split_modes as moe_modes
 from .ssm import Mamba, SSMCache, ssm_decode, ssm_prefill, ssm_train
+from .ssm import split_modes as ssm_modes
 
 __all__ = ["LM"]
 
@@ -89,6 +100,37 @@ def _compute_copy(tree: dict, dtype: torch.dtype, detach: bool) -> dict:
             leaf = val.detach() if detach else val
             out[key] = leaf.to(dtype) if key in _COMPUTE_KEYS else leaf
     return out
+
+
+def _split_logz_ll(logits, labels, split):
+    """(logsumexp over the vocabulary, each label's logit) from this rank's
+    vocabulary columns ``logits`` (B, S, V/m): the max over ``model`` (cut
+    from autograd: it shifts, it does not change the result), the sum of
+    the shifted exponentials summed over ``model``, and the label's logit
+    from the rank that holds its column."""
+    n = logits.shape[-1]
+    top = split.all_max(logits.amax(-1))
+    logz = top + torch.log(split.reduce_from(
+        torch.exp(logits - top[..., None]).sum(-1)))
+    idx = labels - split.block(n)
+    mine = (idx >= 0) & (idx < n)
+    ll = torch.take_along_dim(logits, idx.clamp(0, n - 1)[..., None],
+                              dim=-1)[..., 0]
+    return logz, split.reduce_from(torch.where(
+        mine, ll, torch.zeros((), dtype=ll.dtype, device=ll.device)))
+
+
+def _split_modes(split, kind: str) -> dict:
+    """How the split uses each weight of the LM (``models.distributed``),
+    as each layer declares it, with a mixer of ``kind``: the embedding
+    keeps its vocabulary rows, the untied unembedding (cut by the plans
+    along d) is gathered whole and a rank uses its vocabulary block's
+    columns (parts)."""
+    mixer = attn_modes if kind == "attn" else ssm_modes
+    return {"embed": LOCAL if split.vocab else WHOLE,
+            "unembed": PARTS if split.vocab else WHOLE,
+            "mixer": mixer(split),
+            "ffn": {"mlp": mlp_modes(split), "moe": moe_modes(split)}}
 
 
 def _checkpointed(fn, *args):
@@ -222,6 +264,7 @@ class LM(nn.Module):
         self._weights = None
         self._weights_key = None
         self.batch = None       # a sharded LM's BatchGroup
+        self.split = None       # and its ModelSplit
 
     # ------------------------------------------------------------------
     # parameters
@@ -275,14 +318,19 @@ class LM(nn.Module):
         tree["embed"] = {"w": self.embed.w}
         return tree
 
-    def _full(self, tree):
-        """A (sub)tree of weights made whole: gathered from their shards
-        on a sharded LM, as they are otherwise."""
-        return tree if self.batch is None else gathered(tree, self.batch)
+    def _full(self, tree, split=None, kind="attn"):
+        """A (sub)tree of weights gathered from their shards on a sharded
+        LM (whole, or as ``split`` computes on them: its modes for a
+        ``kind`` of mixer), as they are otherwise."""
+        if self.batch is None:
+            return tree
+        return gathered(tree, self.batch, WHOLE if split is None
+                        else _split_modes(split, kind))
 
-    def _top(self, w: dict) -> dict:
-        """``w`` with every weight outside the stages made whole."""
-        return {**self._full({k: v for k, v in w.items() if k != "stages"}),
+    def _top(self, w: dict, split=None) -> dict:
+        """``w`` with every weight outside the stages gathered."""
+        return {**self._full({k: v for k, v in w.items() if k != "stages"},
+                             split),
                 "stages": w["stages"]}
 
     def stage_meta(self) -> list[bool]:
@@ -304,16 +352,18 @@ class LM(nn.Module):
             return layernorm(p, x)
         return layernorm_np(x)
 
-    def _ffn_apply(self, p, x):
+    def _ffn_apply(self, p, x, split=None):
         if "moe" in p:
             return moe_apply(p["moe"], x, self.cfg, mode=self.cfg.moe_mode,
-                             batch=self.batch)
-        return (mlp_apply(p["mlp"], x, activation=self.cfg.activation),
+                             batch=self.batch, split=split)
+        return (mlp_apply(p["mlp"], x, activation=self.cfg.activation,
+                          split=split),
                 _zero_aux(x.device))
 
-    def _embed(self, w, tokens, positions=None):
+    def _embed(self, w, tokens, positions=None, split=None):
         cfg = self.cfg
-        x = w["embed"]["w"][tokens].to(self.compute_dtype)
+        x = embed_rows(w["embed"]["w"], tokens, split).to(
+            self.compute_dtype)
         if cfg.embed_scale != 1.0:
             x = x * torch.tensor(cfg.embed_scale, dtype=self.compute_dtype)
         if cfg.pos_embed == "sinusoidal":
@@ -323,7 +373,17 @@ class LM(nn.Module):
                 self.compute_dtype)
         return x
 
-    def _logits(self, w, x):
+    def _logits(self, w, x, split=None):
+        """float32 logits: this rank's vocabulary columns with
+        ``split.vocab`` (the tied table's rows it holds, or its block of
+        the whole unembedding's columns)."""
+        if split is not None and split.vocab:
+            x = split.copy_to(x)
+            if not self.cfg.tie_embeddings:
+                spans = split.spans(self.cfg.vocab_padded)
+                return dense({k: columns(v, spans)
+                              for k, v in w["unembed"].items()}, x,
+                             self.compute_dtype).float()
         if self.cfg.tie_embeddings:
             logits = x @ w["embed"]["w"].to(self.compute_dtype).T
         else:
@@ -347,28 +407,32 @@ class LM(nn.Module):
         return [("attn", None, {"norm1": sp["norm1"], "mixer": sp["attn"],
                                 "norm2": sp["norm2"], "ffn": sp["ffn"]})]
 
-    def _stage(self, sp, x, mix, is_global, cache=None, remat_parts=False):
+    def _stage(self, sp, x, mix, is_global, cache=None, remat_parts=False,
+               split=None):
         """One stage: per sub-layer ``x + mixer(norm1(x))``, then ``x +
         ffn(norm2(x))`` where it has an FFN. ``mix(kind, p, h, cache,
         is_global)`` runs the mixer. With ``remat_parts`` each mixer and FFN
         block (norm included) is checkpointed apart, so the backward keeps
-        their outputs and recomputes their insides. Each block makes its
-        weights whole as it runs (``_full``). Returns (x, aux)."""
+        their outputs and recomputes their insides. Each block gathers its
+        weights as it runs (``_full``; as ``split`` computes on them).
+        Returns (x, aux)."""
         aux = _zero_aux(x.device)
         for kind, key, sub in self._sublayers(sp):
             c = cache if key is None or cache is None else cache[key]
 
             def mixer(h, kind=kind, sub=sub, c=c):
-                p = self._full({"norm1": sub["norm1"], "mixer": sub["mixer"]})
+                p = self._full({"norm1": sub["norm1"], "mixer": sub["mixer"]},
+                               split, kind)
                 return mix(kind, p["mixer"], self._norm(p["norm1"], h), c,
                            is_global)
 
             x = x + (_checkpointed(mixer, x) if remat_parts else mixer(x))
             if "ffn" in sub:
                 def ffn(h, sub=sub):
-                    p = self._full({"norm2": sub["norm2"], "ffn": sub["ffn"]})
+                    p = self._full({"norm2": sub["norm2"], "ffn": sub["ffn"]},
+                                   split)
                     return self._ffn_apply(p["ffn"],
-                                           self._norm(p["norm2"], h))
+                                           self._norm(p["norm2"], h), split)
 
                 h, a = _checkpointed(ffn, x) if remat_parts else ffn(x)
                 x = x + h
@@ -383,8 +447,11 @@ class LM(nn.Module):
         """tokens: (B, S) -> (logits (B, S', V) float32, aux). With a
         modality prefix the sequence is [prefix; tokens] and logits cover
         token positions."""
-        return self._forward(self.weights(), tokens,
-                             prefix_embed=prefix_embed)
+        logits, aux = self._forward(self.weights(), tokens,
+                                    prefix_embed=prefix_embed)
+        if self.split is not None and self.split.vocab:
+            logits = self.split.gather_from(logits, -1)
+        return logits, aux
 
     def loss(self, batch, *, remat=False):
         """batch: {"tokens": (B, S), "labels": (B, S) with -1 = masked,
@@ -402,8 +469,12 @@ class LM(nn.Module):
         labels = self._as_long(batch["labels"])
         mask = labels >= 0
         safe = torch.where(mask, labels, 0)
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+        if self.split is not None and self.split.vocab:
+            logz, ll = _split_logz_ll(logits, safe, self.split)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = torch.take_along_dim(logits, safe[..., None],
+                                      dim=-1)[..., 0]
         nll = (logz - ll) * mask
         n_tok = mask.sum()
         if self.batch is not None:
@@ -414,12 +485,15 @@ class LM(nn.Module):
         return total, {"ce": ce, "tokens": n_tok, **aux}
 
     def _forward(self, w, tokens, *, prefix_embed=None, remat=False):
-        """The full-sequence forward over the weight copy ``w``; ``remat``
-        checkpoints each stage under ``cfg.remat_policy``."""
+        """The full-sequence forward over the weight copy ``w``, split over
+        ``model`` on a sharded LM (the logits: this rank's vocabulary
+        columns where the vocabulary splits); ``remat`` checkpoints each
+        stage under ``cfg.remat_policy``."""
         cfg = self.cfg
-        w = self._top(w)
+        split = self.split
+        w = self._top(w, split)
         tokens = self._as_long(tokens)
-        x = self._embed(w, tokens)
+        x = self._embed(w, tokens, split=split)
         n_prefix = 0
         if prefix_embed is not None:
             pe = torch.as_tensor(prefix_embed, device=self.device)
@@ -433,8 +507,8 @@ class LM(nn.Module):
         def mix(kind, p, h, _cache, is_global):
             if kind == "attn":
                 return attn_train(p, h, cfg, positions=positions,
-                                  is_global=is_global)
-            return ssm_train(p, h, cfg)
+                                  is_global=is_global, split=split)
+            return ssm_train(p, h, cfg, split=split)
 
         if remat and cfg.remat_policy not in ("nothing", "outputs"):
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
@@ -442,15 +516,16 @@ class LM(nn.Module):
         aux = _zero_aux(self.device)
         for sp, is_global in zip(w["stages"], self.stage_meta()):
             if whole:
-                x, a = _checkpointed(self._stage, sp, x, mix, is_global)
+                x, a = _checkpointed(self._stage, sp, x, mix, is_global,
+                                     None, False, split)
             else:
                 x, a = self._stage(sp, x, mix, is_global,
-                                   remat_parts=remat)
+                                   remat_parts=remat, split=split)
             aux = {key: aux[key] + a[key] for key in aux}
         x = self._norm(w["final_norm"], x)
         if n_prefix:
             x = x[:, n_prefix:]
-        return self._logits(w, x), aux
+        return self._logits(w, x, split), aux
 
     def init_cache(self, batch: int, max_len: int, dtype=None):
         """Zero caches with a leading ``n_stages`` axis on the LM's device:

@@ -9,6 +9,14 @@ Data movement modes:
     no matmul FLOPs spent on dispatch;
   * ``einsum``: classic GShard dense (T, E, C) one-hot einsums — kept as the
     baseline.
+
+Under a split over ``model`` (``moe_apply``'s ``split``, a
+``models.distributed.ModelSplit``) routing and dispatch stay replicated,
+so the positions kernel still sees every token of the rank's rows, and the
+aux loss and counters are the whole layer's. With ``experts`` a rank runs
+its E/m experts' slots only; with ``moe_ff`` (the legacy layout) every
+expert on its ff columns. Either way its combine is a partial sum,
+all-reduced over ``model``.
 """
 
 from __future__ import annotations
@@ -20,9 +28,10 @@ from torch import nn
 
 from ..sched.moe_dispatch import dispatch_grouped, router_aux_loss
 from .common import Dense, reset_parameters, trunc_normal
+from .distributed import LOCAL
 from .mlp import activation_fn
 
-__all__ = ["MoE", "moe_init", "moe_apply", "moe_capacity"]
+__all__ = ["MoE", "moe_init", "moe_apply", "moe_capacity", "split_modes"]
 
 
 def moe_capacity(group_tokens: int, k: int, n_experts: int,
@@ -82,11 +91,12 @@ def _expert_ffn(p, xin, activation, compute_dtype):
 
 
 def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter",
-              batch=None):
+              batch=None, split=None):
     """x: (B, S, d) -> (y, aux). Routing group = one sequence. ``batch``
     (a ``models.distributed.BatchGroup``): x is this rank's rows of a batch
     split over ranks, and the aux loss is this rank's share of the whole
-    batch's."""
+    batch's. ``split``: the weights are this rank's experts or ff columns
+    (module docstring)."""
     b, s, d = x.shape
     compute_dtype = x.dtype
     k = cfg.experts_per_token
@@ -99,28 +109,55 @@ def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter",
     res = dispatch_grouped(logits, k=k, capacity=cap, rebalance=rebalance,
                            position_method=cfg.dispatch_positions)
 
+    tp = split is not None and (split.experts or split.moe_ff)
+    # the experts this rank runs: [lo, lo + n)
+    n = p["wi"].shape[0]
+    lo = split.block(n) if tp and split.experts else 0
+    xs = split.copy_to(x) if tp else x
     if mode == "scatter":
         tok, valid = res.slot_to_token()                  # (G, E, C) each
         gidx = torch.arange(b, device=x.device)
-        xin = x[gidx[:, None, None], tok.long()]          # (G, E, C, d)
-        xin = xin * valid[..., None].to(compute_dtype)
+        xin = xs[gidx[:, None, None], tok[:, lo:lo + n].long()]
+        xin = xin * valid[:, lo:lo + n, :, None].to(compute_dtype)
         out = _expert_ffn(p, xin, cfg.activation, compute_dtype)
         # a dropped assignment's slot may lie beyond C: read any slot, its
         # weight is 0 (the JAX gather clamps the index the same way)
-        y_slots = out[gidx[:, None, None], res.expert_idx.long(),
-                      res.slot_idx.long().clamp(max=cap - 1)]  # (G, S, k, d)
+        e = res.expert_idx.long()
         w = (res.weight * res.keep).to(compute_dtype)
+        if tp:
+            w = split.copy_to(w)
+        if tp and split.experts:            # other ranks' experts weigh 0
+            e = e - lo
+            w = torch.where((e >= 0) & (e < n), w,
+                            torch.zeros((), dtype=w.dtype, device=w.device))
+            e = e.clamp(0, n - 1)
+        y_slots = out[gidx[:, None, None], e,
+                      res.slot_idx.long().clamp(max=cap - 1)]  # (G, S, k, d)
         y = (y_slots * w[..., None]).sum(2)
     elif mode == "einsum":
         d_tensor, combine = res.dense(dtype=compute_dtype)
-        xin = torch.einsum("gtec,gtd->gecd", d_tensor, x)
+        if tp:      # before the cut: the gradient's parts sum over ranks
+            combine = split.copy_to(combine)
+        d_tensor, combine = d_tensor[:, :, lo:lo + n], combine[:, :, lo:lo + n]
+        xin = torch.einsum("gtec,gtd->gecd", d_tensor, xs)
         out = _expert_ffn(p, xin, cfg.activation, compute_dtype)
         y = torch.einsum("gtec,gecd->gtd", combine, out)
     else:
         raise ValueError(f"unknown moe mode {mode!r}")
+    if tp:
+        y = split.reduce_from(y)
 
     aux = {"moe_aux_loss": aux_loss,
            "overflow": res.aux["overflow"].sum(),
            "rebalanced": res.aux["rebalanced"].sum(),
            "dropped": res.aux["dropped"].sum()}
     return y, aux
+
+
+def split_modes(split) -> dict:
+    """How the split uses each weight (``models.distributed``): the
+    experts' weights keep their shards of the rank's experts or ff
+    columns; the router is whole."""
+    if not (split.experts or split.moe_ff):
+        return {}
+    return dict.fromkeys(("wi", "wg", "wo"), LOCAL)

@@ -14,6 +14,17 @@ plain PyTorch; the JAX package runs no kernel there either.
 
 Caches are written in place (``SSMCache`` of the caller's tensors), where
 the JAX package returns updated copies.
+
+Under a split over ``model`` (``ssm_train``'s ``split``, a
+``models.distributed.ModelSplit`` with ``inner``) a rank runs di/m
+channels: its block of ``conv_w``, ``conv_b``, ``dt_proj``, ``dt_bias``,
+``A_log``, ``D``, ``x_proj``'s rows and ``out_proj``'s rows, and the scan
+on them. ``in_proj`` (d, 2 di) is stored cut into m column blocks, which
+do not hold a rank's channels of both halves, so the step gathers it whole
+and takes the rank's columns of the x half and of the z half.
+``x_proj`` contracts over the channels: its (B, S, dr + 2N) output is
+all-reduced; ``out_proj`` is row-parallel. ``split_modes`` says how the
+split uses each weight.
 """
 
 from __future__ import annotations
@@ -28,9 +39,14 @@ from torch import nn
 from ..kernels import ops
 from ..kernels.ref import mamba_scan_ref
 from .common import Dense, _param, reset_parameters
+from .distributed import LOCAL, PARTS, columns
+
+# the leaves cut along the channels: a rank keeps its channels' block
+_CHANNEL_LEAVES = ("conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
+                   "A_log", "D", "out_proj")
 
 __all__ = ["Mamba", "SSMCache", "ssm_init", "ssm_train", "ssm_prefill",
-           "ssm_decode", "selective_scan_chunked"]
+           "ssm_decode", "selective_scan_chunked", "split_modes"]
 
 
 class SSMCache(NamedTuple):
@@ -123,24 +139,28 @@ def _causal_depthwise_conv(x, w, b, conv_state=None):
     return out + b, new_state
 
 
-def _dt(p, xc):
+def _dt(p, xc, split=None):
     """xc (B, S, di) post-conv + silu -> (dt (B, S, di) float32, B, C (B, S,
-    N) in xc's dtype). ``dt_proj`` runs in float32, as in the JAX package."""
+    N) in xc's dtype). ``dt_proj`` runs in float32, as in the JAX package.
+    With ``split``, xc holds this rank's channels: ``x_proj``'s partial
+    product is summed over ``model`` and enters the split again."""
     dr = p["dt_proj"]["w"].shape[0]
     n = p["A_log"].shape[1]
     dbc = xc @ p["x_proj"]["w"].to(xc.dtype)            # (B, S, dr+2N)
+    if split is not None:
+        dbc = split.copy_to(split.reduce_from(dbc))
     dt_raw, b_mat, c_mat = torch.split(dbc, [dr, n, n], dim=-1)
     dt = F.softplus(dt_raw.float() @ p["dt_proj"]["w"].float()
                     + p["dt_bias"])
     return dt, b_mat, c_mat
 
 
-def _scan_inputs(p, xc, mask=None):
+def _scan_inputs(p, xc, mask=None, split=None):
     """(da, dbx, C): da, dbx (B, S, N, di) float32 in the kernel's layout,
     written in place without autograd, as out-of-place products with it.
     With ``mask`` (B, S) False on padding, dt is 0 there, so da = 1 and dbx
     = 0 exactly: the identity transition of the JAX package's prefill."""
-    dt, b_mat, c_mat = _dt(p, xc)
+    dt, b_mat, c_mat = _dt(p, xc, split)
     if mask is not None:
         dt = dt * mask[..., None]
     a = -torch.exp(p["A_log"]).T                        # (N, di)
@@ -162,12 +182,14 @@ def _scan_inputs(p, xc, mask=None):
     return da, dbx, c_mat
 
 
-def _gate_out(p, y, xc, z):
-    """(y + D x) gated by silu(z), through ``out_proj``."""
+def _gate_out(p, y, xc, z, split=None):
+    """(y + D x) gated by silu(z), through ``out_proj`` (row-parallel with
+    ``split``)."""
     compute_dtype = z.dtype
     y = y + p["D"] * xc.float()
     y = y.to(compute_dtype) * F.silu(z)
-    return y @ p["out_proj"]["w"].to(compute_dtype)
+    out = y @ p["out_proj"]["w"].to(compute_dtype)
+    return out if split is None else split.reduce_from(out)
 
 
 def _scan_out(h, c_mat):
@@ -176,23 +198,41 @@ def _scan_out(h, c_mat):
     return torch.matmul(c_mat.float().unsqueeze(-2), h).squeeze(-2)
 
 
-def _mix_in(p, x):
-    """x (B, S, d) -> (xr, z) halves of ``in_proj``, in x's dtype."""
-    xz = x @ p["in_proj"]["w"].to(x.dtype)
+def _mix_in(p, x, split=None):
+    """x (B, S, d) -> (xr, z) halves of ``in_proj``, in x's dtype (this
+    rank's channels of each with ``split``: its block of the x half's
+    columns, then the same block of the z half's)."""
+    w = p["in_proj"]["w"].to(x.dtype)
+    if split is not None:
+        w = columns(w, split.spans(w.shape[1], parts=2))
+    xz = x @ w
     return xz.chunk(2, dim=-1)
 
 
-def ssm_train(p, x, cfg):
-    """The full-sequence forward. x: (B, S, d) -> (B, S, d)."""
+def split_modes(split) -> dict:
+    """How the split uses each weight (``models.distributed``): the
+    per-channel leaves keep their shards, ``in_proj`` is gathered whole
+    and the rank uses its channels' columns (parts)."""
+    if not split.inner:
+        return {}
+    return {"in_proj": PARTS, **dict.fromkeys(_CHANNEL_LEAVES, LOCAL)}
+
+
+def ssm_train(p, x, cfg, split=None):
+    """The full-sequence forward. x: (B, S, d) -> (B, S, d). With
+    ``split.inner`` the rank runs its channels (module docstring)."""
     compute_dtype = x.dtype
-    xr, z = _mix_in(p, x)
+    split = split if split is not None and split.inner else None
+    if split is not None:
+        x = split.copy_to(x)
+    xr, z = _mix_in(p, x, split)
     xc, _ = _causal_depthwise_conv(xr, p["conv_w"].to(compute_dtype),
                                    p["conv_b"].to(compute_dtype))
     xc = F.silu(xc)
-    da, dbx, c_mat = _scan_inputs(p, xc)
+    da, dbx, c_mat = _scan_inputs(p, xc, split=split)
     h = ops.mamba_scan(da, dbx)                         # (B, S, N, di) f32
     del da, dbx
-    return _gate_out(p, _scan_out(h, c_mat), xc, z)
+    return _gate_out(p, _scan_out(h, c_mat), xc, z, split)
 
 
 def ssm_prefill(p, x, cfg, cache: SSMCache, *, mask):

@@ -10,13 +10,20 @@ step, the loop and the checkpoints do with them.
   keeps its shard of each before the next is drawn, so it never holds
   more than one whole leaf beside its shards; the shards equal
   ``LM.init``'s weights cut up, bit for bit.
-* Forward and backward: the LM gathers a sub-block's weights when it runs
-  and sums their gradients over the batch's ranks in the gather's backward
-  (``models.distributed``); each rank takes its block of the batch's rows.
-  Ranks along ``model`` compute the same rows (no tensor-parallel compute).
+* Forward and backward: each rank takes its block of the batch's rows;
+  along ``model`` the ranks split the compute of those rows
+  (``launch.shardings.compute_split``: heads, ff columns, experts, Mamba
+  channels, vocabulary columns), each on its weights' ``model`` shards.
+  The LM gathers a sub-block's weights over the other mesh dims when it
+  runs, and the gather's backward sums their gradients over the batch's
+  ranks (``models.distributed``). A split leaf's gradient is this rank's
+  part of the whole gradient, not a copy.
 * Clipping: the global norm counts each element once — a rank adds a
   leaf's squares only where it is the first of the ranks holding that
-  shard — summed over the whole mesh.
+  shard (a split leaf's ``model`` shards are parts: every model rank
+  adds its own) — summed over the whole mesh.
+* Metrics: the loss and its terms are whole on every ``model`` rank; they
+  are summed over the batch's ranks alone.
 * Update: AdamW on the local shards in place; a leaf whose moments are
   laid out otherwise than its parameter (widened over ``pod``) updates the
   moments' block and gathers the new values back into the parameter's.
@@ -37,10 +44,11 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..checkpoint import ckpt
-from ..launch.shardings import placements, state_pspecs
+from ..launch.shardings import compute_split, placements, state_pspecs
 from ..models.common import draws, param_tree
 from ..models.distributed import (
     BatchGroup,
+    ModelSplit,
     gather_full,
     local_chunk,
     to_local,
@@ -59,12 +67,13 @@ def _dtensor(local, mesh, pl, shape, stride) -> DTensor:
 
 class Sharding:
     """The layout of a TrainState on ``mesh``: per leaf (its key path) the
-    parameter's and the moments' placements, and the batch's ranks (the
-    ``rules``' ``batch`` axes)."""
+    parameter's and the moments' placements, the batch's ranks (the
+    ``rules``' ``batch`` axes) and the compute's split over ``model``."""
 
     def __init__(self, lm, mesh, rules: dict):
         self.mesh = mesh
         self.batch = BatchGroup(mesh, rules.get("batch"))
+        self.split = ModelSplit(mesh, compute_split(lm.cfg, mesh, rules))
         shapes = param_tree(lm)
         specs = state_pspecs(TrainState(shapes, AdamWState(None, shapes,
                                                            shapes)),
@@ -98,7 +107,8 @@ class Sharding:
 
     def reduce_metrics(self, metrics: dict) -> dict:
         """Every rank's share summed over the batch's ranks (the token
-        count is the whole batch's already)."""
+        count is the whole batch's already; over ``model`` each is whole
+        already)."""
         return {k: v if k == "tokens" else self.batch.sum_(v.clone())
                 for k, v in metrics.items()}
 
@@ -138,10 +148,10 @@ def _rebuild(tree, fn, path=()):
 
 def shard_params(lm, mesh, rules: dict, generator=None) -> Sharding:
     """Turn the LM's parameters into DTensor shards in place and bind the
-    batch group to it; returns the Sharding. The values are the LM's own,
-    or with ``generator`` drawn from it on ``lm.device`` one leaf at a time
-    (``models.common.draws``: ``LM.init``'s values and order), each cut to
-    this rank's shard before the next is drawn."""
+    batch group and the split to it; returns the Sharding. The values are
+    the LM's own, or with ``generator`` drawn from it on ``lm.device`` one
+    leaf at a time (``models.common.draws``: ``LM.init``'s values and
+    order), each cut to this rank's shard before the next is drawn."""
     sharding = Sharding(lm, mesh, rules)
     values = (draws(lm, generator, lm.device) if generator is not None
               else [(n, p.detach()) for n, p in lm.named_parameters()])
@@ -159,6 +169,7 @@ def shard_params(lm, mesh, rules: dict, generator=None) -> Sharding:
             _dtensor(local, mesh, pl, p.shape, p.stride()),
             requires_grad=p.requires_grad))
     lm.batch = sharding.batch
+    lm.split = sharding.split
     lm._weights = None
     return sharding
 

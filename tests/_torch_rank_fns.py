@@ -51,6 +51,17 @@ def sharded_step(rank, world, arch, state_dict, batch, multi_pod, eps):
     the small production mesh: the gradients (gathered) before it, the
     metrics and the gathered parameters after it (rank 0), and every
     rank's bytes of parameter shards."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    patch_production_mesh()
+    mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod,
+                                         device_type="cpu")
+    return step_on_mesh(rank, arch, state_dict, batch, mesh, eps)
+
+
+def step_on_mesh(rank, arch, state_dict, batch, mesh, eps):
+    """``sharded_step`` on ``mesh``; every rank also returns the compute's
+    split over ``model``."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.shardings import activation_rules
@@ -62,13 +73,10 @@ def sharded_step(rank, world, arch, state_dict, batch, multi_pod, eps):
     from repro_torch.train import make_train_step
     from repro_torch.train.sharded import gather_leaf, shard_state
 
-    patch_production_mesh()
     cfg = get_config(arch).smoke()
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(state_dict)
     lm.requires_grad_(True)
-    mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod,
-                                         device_type="cpu")
     opt = AdamW(weight_decay=0.1, eps=eps)
     rules = activation_rules(cfg, mesh)
     with mesh_mod.set_mesh(mesh), logical_axis_rules(rules):
@@ -84,11 +92,16 @@ def sharded_step(rank, world, arch, state_dict, batch, multi_pod, eps):
         state, metrics = step(state, batch)
         params = {".".join(path): gather_leaf(t)
                   for path, t in tree_items(state.params)}
+        # the forward alone after the step: this rank's rows, the
+        # vocabulary's columns gathered whole
+        logits, _ = lm.apply(sharding.batch.rows(batch["tokens"]))
+    split = sharding.split.flags()
     out = {"grads": grads, "params": params,
            "metrics": {k: float(v) for k, v in metrics.items()},
-           "local_param_bytes": local_bytes,
-           "step": int(state.opt.step)}
-    return out if rank == 0 else {"local_param_bytes": local_bytes}
+           "local_param_bytes": local_bytes, "split": split,
+           "logits": logits, "step": int(state.opt.step)}
+    return out if rank == 0 else {"local_param_bytes": local_bytes,
+                                  "split": split}
 
 
 def train_cli(rank, world, argv):

@@ -647,3 +647,47 @@ def test_granite_two_layer_train_step_on_card(cuda):
     assert counts["dispatch_positions"] == 4
     assert counts["mamba_scan"] == counts["prefix_scan"] == 0
     assert not torch.equal(lm.stages[0].attn.wq.w.detach(), before)
+
+
+def test_fp8_kv_cache_decode_on_card(cuda):
+    """``tests/test_kv_cache_dtype.py``'s case on the card: qwen1.5-32b's
+    smoke model (weights from the port's init, a CPU generator seeded 0:
+    the JAX package's weights need JAX, which the card machine lacks)
+    decodes 10 steps of 2 sequences with a ``float8_e4m3fn`` KV cache on
+    the card and on the CPU: the reference's bounds between the two
+    (greedy agreement at least 0.95, the largest logit gap below 1.0), and
+    the card's fp8-against-float32 greedy agreement equal to the CPU's
+    (``tests/test_torch_kv_cache_dtype.py`` holds the CPU's at the
+    reference's bounds on the reference's weights)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    base = get_config("qwen1.5-32b").smoke()
+    tokens = np.random.default_rng(1).integers(0, base.vocab_size, (2, 10))
+
+    def decode(changes, device):
+        cfg = dataclasses.replace(base, **changes)
+        drawn = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        lm = LM(cfg, device=device)
+        lm.load_state_dict(drawn.state_dict())
+        cache = lm.init_cache(2, 20)
+        out = []
+        for t in range(10):
+            logits, cache = lm.decode_step(cache, tokens[:, t:t + 1],
+                                           np.full((2,), t))
+            out.append(logits[:, 0].float().cpu().numpy())
+        return cache.k.dtype, np.stack(out)
+
+    fp8 = {"kv_cache_dtype": "float8_e4m3fn"}
+    f32 = {"kv_cache_dtype": "float32", "dtype": "float32"}
+    kind, card8 = decode(fp8, cuda)
+    assert kind == torch.float8_e4m3fn
+    _, host8 = decode(fp8, torch.device("cpu"))
+    assert (card8.argmax(-1) == host8.argmax(-1)).mean() >= 0.95
+    assert np.abs(card8 - host8).max() < 1.0
+    _, card32 = decode(f32, cuda)
+    _, host32 = decode(f32, torch.device("cpu"))
+    assert (card8.argmax(-1) == card32.argmax(-1)).mean() == (
+        host8.argmax(-1) == host32.argmax(-1)).mean()

@@ -1,0 +1,7 @@
+"""``tests/test_system.py``'s cases, run against the port
+(``_torch_mirror``: the reference file's own source, its ``repro``
+imports pointed at ``repro_torch``)."""
+
+from _torch_mirror import mirror
+
+globals().update(mirror("test_system.py"))
