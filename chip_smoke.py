@@ -238,6 +238,30 @@ Phases, each fatal on failure:
        gradients under torch.profiler (gloo's host time, the device's busy
        time). The ranks' logs stay under build/chip_smoke_tp/ when the
        phase fails.
+16. prefill and decode split over ``model``: granite-moe-1b-a400m at full
+    width and depth in bf16 served unsharded on the card (8 of
+    granite-serve's prompts into caches of 4,096 positions, 64 greedy
+    decode steps: its tokens, logits and MoE routing the reference), then
+    two child processes (``chip_smoke.py --split-child RANK PORT OUT SMI
+    REF``), one gloo rank each, share the card on the (1, 2) ("data",
+    "model") mesh, each rank computing its heads, ff columns, experts,
+    channels and vocabulary columns from its block of the cache (its half
+    of the KV sequence, its SSM channels): (a) granite and falcon-mamba-7b
+    at full width cut to 2 layers in float32 (the KV cache too), prompts
+    of 137, 503, 712 and 900 tokens into caches of 1,024 (rank 1's block
+    past two of them, one crossing the edge in decode), 16 decode steps
+    fed the unsharded LM's greedy tokens on the CPU (the plain versions):
+    every call's logits within 1e-4 x max|logit|, the greedy tokens equal,
+    the cache gathered from the ranks within 1e-4 x its max on the rows
+    written, the launches counted; (b) granite in bf16 fed the reference's
+    tokens: the logits' distance, the greedy agreement and the top-k
+    choices that turned, reported; on the reference's routing replayed,
+    every call's logits within 5e-2 x max|logit| of the reference's; 24
+    flash forwards (all on the tensor cores) and 24 positions launches a
+    prefill, 24 positions a decode step; prefill tokens/s, decode ms a
+    step and peak memory a rank beside the unsharded run's, and gloo's
+    host time in a profiled decode step. The ranks' logs stay under
+    build/chip_smoke_split/ when the phase fails.
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -880,6 +904,12 @@ def phase_kernels_lm(dev):
             # a rank's heads in 15c: (c) bf16 training, (a) float32
             ("15c(c) split heads", (4, 8, 4, 2048, 64), bf16, {}),
             ("15c(a) split heads f32", (2, 8, 4, 512, 64), f32, {}),
+            # a rank's heads in 16: (b) bf16 prefill, (a) float32 prefill
+            ("16(b) split heads padded", (8, 8, 4, 2048, 64), bf16,
+             {"lengths": [len(p) for p in serve_prompts(
+                 get_config(ARCH), SPLIT_PROMPTS)]}),
+            ("16(a) split heads padded f32", (4, 8, 4, 900, 64), f32,
+             {"lengths": list(SPLIT_LENS)}),
             ("f32 window+soft-cap", (2, 4, 2, 700, 64), f32,
              {"window": 100, "softcap": 30.0}),
             ("f32 padded", (4, 16, 8, 700, 64), f32,
@@ -1326,6 +1356,8 @@ def phase_kernels_mamba(dev):
              {"lengths": [5, 77]}),
             ("B=2, S=130 at full width", (2, 130, 16, 8192), f32, {}),
             ("15c(b) a rank's channels", (2, 512, 16, 4096), f32, {}),
+            ("16(a) a rank's channels, padded", (4, 900, 16, 4096), f32,
+             {"lengths": list(SPLIT_LENS)}),
             ("bf16 serve shape, padded", (4, 2048, 16, 8192), bf16,
              {"lengths": [2048, 256, 1000, 1731]})]:
         scan_check(label, shape, dtype, g, dev, **extra)
@@ -3275,6 +3307,551 @@ def phase_tp(smi: str, mesh_run: dict) -> dict:
     return launches
 
 
+SPLIT_CHILD = "--split-child"  # 16: two gloo ranks serve on the (1, 2) mesh
+SPLIT_LENS = (137, 503, 712, 900)   # 16(a): rank 1's block [512, 1024)
+SPLIT_MAX_LEN = 1024                # past rows 0-1, row 1 crosses in decode
+SPLIT_STEPS = 16
+SPLIT_TRIES = 3         # 16(a): prompt sets tried past routing near ties
+SPLIT_PROMPTS = 8       # 16(b): granite-serve's first 8 prompts
+SPLIT_B_MAX_LEN = 4096
+SPLIT_B_STEPS = 64
+# 16(b), bf16 at full depth against the unsharded run on the card, on its
+# routing: each rank rounds its partial sums to bf16 before the
+# all-reduce (phase 15c(c): losses 4.4e-5 and gradient norms ~1% apart);
+# through 24 layers and a 49,408-wide product that gives logits ~1e-2 x
+# max|logit| apart, while a block attended with the wrong mask or merge
+# moves them by O(1)
+SPLIT_BF16_TOL = 5e-2
+SPLIT_TIMEOUT = 300
+SPLIT_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_split"
+
+
+def split_prompts(cfg, lens, rng):
+    """Right-padded prompts of ``lens`` real tokens, (B, max) int64."""
+    toks = np.zeros((len(lens), max(lens)), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, size=n)
+    return toks, np.asarray(lens, np.int32)
+
+
+def split_run(lm, cache, toks, lens, feed, dev):
+    """Prefill, then a decode step a row of ``feed`` (S, B): the logits of
+    each call (B, V), the cache, the prefill's and each step's seconds."""
+    out, times = [], []
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(cache, toks, lens)
+    out.append(logits)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+    for step, nxt in enumerate(feed):
+        t0 = time.perf_counter()
+        logits, cache = lm.decode_step(cache, nxt[:, None], lens + step)
+        out.append(logits[:, 0])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, cache, times
+
+
+def _kv_rows(cache, lens):
+    """(the cache's KV leaves cut to the rows below each length, its SSM
+    leaves), each as a list of tensors."""
+    nodes = list(cache.values()) if isinstance(cache, dict) else [cache]
+    kv, ssm = [], []
+    for node in nodes:
+        for t in node:
+            if t.dim() == 5:
+                kv.extend(t[:, i, :n] for i, n in enumerate(lens))
+            else:
+                ssm.append(t)
+    return kv, ssm
+
+
+ROUTE_FIELDS = ("expert_idx", "slot_idx", "keep", "weight")
+
+
+@contextlib.contextmanager
+def routing(replay=None):
+    """Every MoE dispatch recorded as it is made, (router logits,
+    ``DispatchResult``) in call order, on its device; with ``replay``
+    (``ROUTE_FIELDS`` of such a record, in call order) each call takes the
+    recorded routing in its place (the positions kernel still runs)."""
+    plain = moe_mod.dispatch_grouped
+    record = []
+
+    def call(logits, **kw):
+        res = plain(logits, **kw)
+        if replay is not None:
+            res = dataclasses.replace(res, **{
+                f: replay[len(record)][f].to(logits.device)
+                for f in ROUTE_FIELDS})
+        record.append((logits.detach(), res))
+        return res
+    moe_mod.dispatch_grouped = call
+    try:
+        yield record
+    finally:
+        moe_mod.dispatch_grouped = plain
+
+
+def split_vs_plain(tag, cfg, mesh, dev, rank):
+    """16(a): ``cfg`` (float32) served split over the (1, 2) mesh's
+    ``model`` axis from weights drawn one leaf at a time into the shards
+    (a CUDA generator seeded 0), against the unsharded LM on the CPU
+    (rank 0; the same weights, the plain versions): SPLIT_LENS' prompts
+    prefilled into caches of SPLIT_MAX_LEN, then SPLIT_STEPS decode steps
+    fed the CPU's greedy tokens (broadcast). Every call's logits within
+    LOGIT_TOL x max|logit|, the greedy tokens equal, the cache gathered
+    from the ranks within LOGIT_TOL x its max of the CPU's on the rows
+    below each length (and the SSM caches whole). A prompt set whose MoE
+    top-k flips at a near tie between the two runs is reported and the
+    next one tried (rank 0 decides, the ranks agree by a broadcast).
+    Returns the record."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.shardings import activation_rules, serve_shape
+    from repro_torch.train.sharded import gather_cache, shard_params
+
+    t_case = time.perf_counter()
+    b = len(SPLIT_LENS)
+    lm = LM(cfg, device=dev, materialize=False)
+    shard_params(lm, mesh, activation_rules(cfg, mesh, serve_shape(
+        b, SPLIT_MAX_LEN)), torch.Generator(device=dev).manual_seed(0))
+    host = card_and_host(cfg, dev)[1] if rank == 0 else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    group = mesh.get_group("model")
+    src = dist.get_global_rank(group, 0)
+    rng = np.random.default_rng(7)
+    rec = {"split": lm.split.flags()}
+    with routing() as calls:
+        for attempt in range(SPLIT_TRIES):
+            toks, lens = split_prompts(cfg, SPLIT_LENS, rng)
+            feed = torch.zeros((SPLIT_STEPS, b), dtype=torch.int64)
+            calls.clear()
+            if rank == 0:
+                t0 = time.perf_counter()
+                hc = host.init_cache(b, SPLIT_MAX_LEN)
+                logits, hc = host.prefill(hc, toks, lens)
+                want = [logits]
+                for step in range(SPLIT_STEPS):
+                    feed[step] = logits.argmax(-1)
+                    logits, hc = host.decode_step(hc, feed[step][:, None],
+                                                  lens + step)
+                    logits = logits[:, 0]
+                    want.append(logits)
+                rec["plain_s"] = time.perf_counter() - t0
+                on_host = list(calls)
+                calls.clear()
+            dist.broadcast(feed, src=src, group=group)
+            ops.reset_launch_counts()
+            with kernel_shapes() as shapes:
+                cache = lm.init_cache(b, SPLIT_MAX_LEN)
+                got, cache, times = split_run(lm, cache, toks, lens,
+                                              feed.to(dev), dev)
+            rec["counts"], rec["shapes"] = ops.launch_counts(), shapes
+            rec["cache_shapes"] = [list(t.shape) for t in _leaves(cache)]
+            rec["seq"] = [lm.seq.lo, lm.seq.block]
+            rec["prefill_s"], rec["step_ms"] = times[0], [
+                t * 1e3 for t in times[1:]]
+            whole = gather_cache(lm, cache)
+            again = torch.zeros(())
+            if rank == 0:
+                tie = routing_tie(tag, list(calls), on_host,
+                                  cfg.experts_per_token)
+                if tie is None:
+                    errs = [_max_rel(g, w) for g, w in zip(got, want)]
+                    rec["logit_errs"] = errs
+                    if not max(errs) <= LOGIT_TOL:
+                        fail(f"{tag}: logits differ by {max(errs):.3e} x "
+                             f"max|logit| (calls {errs})")
+                    chosen = torch.stack([g.argmax(-1).cpu() for g in got])
+                    if not (torch.equal(chosen[:-1], feed) and torch.equal(
+                            chosen[-1], logits.argmax(-1))):
+                        fail(f"{tag}: greedy tokens differ from the CPU's")
+                    # rows written: below each length after the last step
+                    n = lens + SPLIT_STEPS
+                    kv_g, ssm_g = _kv_rows(whole, n)
+                    kv_w, ssm_w = _kv_rows(hc, n)
+                    cache_err = max(_max_rel(g, w) for g, w in zip(
+                        kv_g + ssm_g, kv_w + ssm_w))
+                    rec["cache_err"] = cache_err
+                    if not cache_err <= LOGIT_TOL:
+                        fail(f"{tag}: the gathered cache differs by "
+                             f"{cache_err:.3e} x max")
+                else:
+                    log(f"[{tag}] prompts {attempt}: top-k decided by a "
+                        f"near tie (gap {tie:.2e}) between the split and "
+                        f"the unsharded run; the next prompts")
+                    again.fill_(1.0)
+            dist.broadcast(again, src=src, group=group)
+            del whole
+            if not again.item():
+                break
+        else:
+            fail(f"{tag}: every prompt set diverged at a near tie")
+    rec["attempts"] = attempt + 1
+    rec["lens"] = lens.tolist()
+    plain = (f", the unsharded on the CPU {rec['plain_s']:.2f}s"
+             if rank == 0 else "")
+    log(f"[split-{rank}] {tag}: split prefill {rec['prefill_s']:.2f}s, "
+        f"decode {sum(rec['step_ms']) / len(rec['step_ms']):.1f} ms a step"
+        f"{plain}, {time.perf_counter() - t_case:.1f}s for the case")
+    del lm, host, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def split_profile(lm, cache, nxt, lens) -> dict:
+    """One more decode step of 16(b)'s split LM under torch.profiler: the
+    wall, the host time inside gloo's collectives (``gloo:`` events) and
+    the device's busy time, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm.decode_step(cache, nxt[:, None], lens)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    gloo = [e for e in events if e.key.startswith("gloo:")]
+    return {"wall_ms": wall * 1e3,
+            "gloo_ms": sum(e.cpu_time_total for e in gloo) / 1e3,
+            "gloo_calls": sum(e.count for e in gloo),
+            "gloo_kinds": sorted({e.key for e in gloo}),
+            "busy_ms": sum(getattr(e, "self_device_time_total", 0.0)
+                           for e in events if e.device_type
+                           == torch.autograd.DeviceType.CUDA) / 1e3}
+
+
+def split_bf16(cfg, mesh, dev, rank, ref_path):
+    """16(b): granite at full width and depth in bf16 served split over the
+    (1, 2) mesh, its weights drawn into the shards (a CUDA generator
+    seeded 0, as the unsharded run's): SPLIT_PROMPTS prompts prefilled into
+    caches of SPLIT_B_MAX_LEN, then SPLIT_B_STEPS decode steps fed the
+    unsharded run's tokens (``ref_path``), timed, its launches counted (a
+    rank: 24 flash forwards, all on the tensor cores, and 24 positions a
+    prefill, 24 positions a decode step) and one more step profiled; rank
+    0 reports each call's logits against the unsharded run's, the greedy
+    agreement and the top-k choices that differ from its. bf16 rounds the
+    two runs' sums apart and a router's top-k turns at a near tie on such
+    a difference, which moves a token's expert output by O(1): so the run
+    is made again with the unsharded run's routing replayed
+    (``routing``), and there each call's logits are held within
+    SPLIT_BF16_TOL x max|logit| of the unsharded run's. Returns the
+    record."""
+    from repro_torch.launch.shardings import activation_rules, serve_shape
+    from repro_torch.train.sharded import shard_params
+
+    ref_run = torch.load(ref_path)
+    feed = ref_run["feed"].to(dev)
+    b, n = SPLIT_PROMPTS, cfg.n_layers
+    toks, lens = ref_run["toks"].numpy(), ref_run["lens"].numpy()
+    lens_t = torch.as_tensor(lens, device=dev)
+    lm = LM(cfg, device=dev, materialize=False)
+    shard_params(lm, mesh, activation_rules(cfg, mesh, serve_shape(
+        b, SPLIT_B_MAX_LEN)), torch.Generator(device=dev).manual_seed(0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with kernel_shapes() as shapes, routing() as routes:
+        cache = lm.init_cache(b, SPLIT_B_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cache, toks, lens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        rec = {"prefill_counts": ops.launch_counts(), "shapes": shapes,
+               "prefill_s": prefill_s, "tokens": int(lens.sum()),
+               "cache_shapes": [list(t.shape) for t in _leaves(cache)],
+               "split": lm.split.flags()}
+        got, step_ms, counts = [logits], [], []
+        for step in range(SPLIT_B_STEPS):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(cache, feed[step][:, None],
+                                           lens_t + step)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append({k: v for k, v in ops.launch_counts().items()
+                           if v})
+            got.append(logits[:, 0])
+    want = {"flash_attention": n, "flash_attention_tc": n,
+            "dispatch_positions": n}
+    if {k: v for k, v in rec["prefill_counts"].items() if v} != want:
+        fail(f"split-{rank}: prefill launches {rec['prefill_counts']}, "
+             f"expected {want}")
+    if any(c != {"dispatch_positions": n} for c in counts):
+        fail(f"split-{rank}: decode launches {counts[:2]}..., expected "
+             f"{n} positions a step")
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["step_ms"] = step_ms
+    rec["profile"] = split_profile(lm, cache, feed[-1],
+                                   lens_t + SPLIT_B_STEPS)
+    if rank == 0:
+        rec["free_errs"] = [_max_rel(g, w)
+                            for g, w in zip(got, ref_run["logits"])]
+        agree = torch.stack([g.argmax(-1).cpu() for g in got]) == \
+            ref_run["logits"].argmax(-1)
+        rec["agreement"] = agree.float().mean().item()
+        # tokens (of every dispatch, prefill padding included) whose set
+        # of k experts differs from the unsharded run's
+        turned = [(r.expert_idx.cpu().sort(-1).values
+                   != w["expert_idx"].sort(-1).values).any(-1)
+                  for (_, r), w in zip(routes, ref_run["routes"])]
+        rec["turned"] = [sum(int(t.sum()) for t in turned),
+                         sum(t.numel() for t in turned)]
+    del cache, got, routes
+    # the same run on the unsharded run's routing
+    with routing(replay=ref_run["routes"]):
+        cache = lm.init_cache(b, SPLIT_B_MAX_LEN)
+        got, cache, times = split_run(lm, cache, toks, lens, feed, dev)
+    rec["warm_prefill_s"] = times[0]
+    if rank == 0:
+        errs = [_max_rel(g, w) for g, w in zip(got, ref_run["logits"])]
+        rec["logit_errs"] = errs
+        if not max(errs) <= SPLIT_BF16_TOL:
+            fail(f"split-{rank}: bf16 logits on the unsharded run's "
+                 f"routing differ by {max(errs):.3e} x max|logit| from its "
+                 f"(bound {SPLIT_BF16_TOL})")
+    del lm, cache, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def split_child(rank: int, port: int, out: str, smi: str, ref: str) -> int:
+    """16, rank ``rank`` of two processes sharing the card: a gloo world
+    (tcp://localhost at ``port``) and the (1, 2) ("data", "model") mesh on
+    it, then (a) granite and falcon-mamba-7b at full width cut to 2 layers
+    in float32, the KV cache too (``split_vs_plain``; a bf16 cache rounds
+    values 1e-7 apart to neighbouring bf16 values now and then), and (b)
+    granite at full width and depth in bf16 (``split_bf16``, the
+    unsharded run's tokens, logits and routing in ``ref``). Writes its
+    record to ``out`` as JSON. On an error it prints it and leaves at once
+    (as ``tp_child``)."""
+    import faulthandler
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    faulthandler.dump_traceback_later(SPLIT_TIMEOUT - 30, exit=False)
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TP_RANKS, rank=rank)
+    try:
+        res = {"rank": rank, "backend": dist.get_backend(),
+               "init_s": time.perf_counter() - t0}
+        mesh = init_device_mesh("cuda", (1, TP_RANKS),
+                                mesh_dim_names=("data", "model"))
+        res["mesh_shape"] = [list(mesh.shape), list(mesh.mesh_dim_names)]
+        res["a"] = {}
+        for arch in (ARCH, SSM_ARCH):
+            cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                      dtype="float32",
+                                      kv_cache_dtype="float32")
+            res["a"][arch] = split_vs_plain(f"split-{arch}", cfg, mesh, dev,
+                                            rank)
+        res["b"] = split_bf16(get_config(ARCH), mesh, dev, rank, ref)
+    except BaseException as exc:
+        log(f"[split-{rank}] {type(exc).__name__}: {exc}")
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def split_reference(dev, smi: str) -> dict:
+    """16(b)'s reference: granite at full width and depth in bf16, the
+    unsharded LM on the card, SPLIT_PROMPTS prompts of granite-serve's mix
+    prefilled into caches of SPLIT_B_MAX_LEN and SPLIT_B_STEPS greedy
+    decode steps; its tokens, logits, MoE routing (``routing``) and prompts
+    saved for the ranks. Returns its times and peak memory."""
+    cfg = get_config(ARCH)
+    prompts = serve_prompts(cfg, SPLIT_PROMPTS)
+    lens = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((len(prompts), PROMPT_HI), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    lm = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lens_t = torch.as_tensor(lens, device=dev)
+    with routing() as routes:
+        cache = lm.init_cache(len(prompts), SPLIT_B_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cache, toks, lens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, feed, step_ms = [logits.cpu()], [], []
+        for step in range(SPLIT_B_STEPS):
+            feed.append(logits.argmax(-1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.decode_step(cache, feed[-1][:, None],
+                                           lens_t + step)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits = logits[:, 0]
+            out.append(logits.cpu())
+    rec = {"prefill_s": prefill_s, "step_ms": step_ms,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "tokens": int(lens.sum()), "lens": lens.tolist()}
+    torch.save({"feed": torch.stack(feed).cpu(), "logits": torch.stack(out),
+                "toks": torch.from_numpy(toks),
+                "lens": torch.from_numpy(lens),
+                "routes": [{f: getattr(r, f).cpu() for f in ROUTE_FIELDS}
+                           for _, r in routes]}, SPLIT_OUT / "ref.pt")
+    del lm, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve_split(smi: str, dev) -> dict:
+    """Phase 16: 16(b)'s unsharded reference on the card, then two
+    processes, one gloo rank each, share the card on the (1, 2) mesh
+    (``split_child``); both must end within SPLIT_TIMEOUT. Returns the
+    launches of each kernel over rank 0's split runs."""
+    import socket
+
+    t16 = time.perf_counter()
+    shutil.rmtree(SPLIT_OUT, ignore_errors=True)
+    SPLIT_OUT.mkdir(parents=True)
+    plain = split_reference(dev, smi)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for rank in range(TP_RANKS):
+        logs.append(open(SPLIT_OUT / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), SPLIT_CHILD,
+             str(rank), str(port), str(SPLIT_OUT / f"rank{rank}.json"), smi,
+             str(SPLIT_OUT / "ref.pt")], stdout=logs[-1],
+            stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + SPLIT_TIMEOUT
+    try:
+        while time.monotonic() < deadline and not all(
+                proc.poll() == 0 for proc in procs) and not any(
+                proc.poll() for proc in procs):
+            time.sleep(0.5)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    texts = [(SPLIT_OUT / f"rank{r}.log").read_text()
+             for r in range(TP_RANKS)]
+    for text in texts:
+        for line in text.splitlines():
+            if line.startswith("[split-"):
+                log(line)
+    codes = [proc.returncode for proc in procs]
+    if codes != [0] * TP_RANKS:
+        fail(f"split: the ranks exited {codes} after {wall:.1f}s: "
+             f"{texts[0][-2500:]} || {texts[1][-2500:]}")
+    ranks = [json.loads((SPLIT_OUT / f"rank{r}.json").read_text())
+             for r in range(TP_RANKS)]
+    if any(r["backend"] != "gloo" or r["mesh_shape"] != [
+            [1, TP_RANKS], ["data", "model"]] for r in ranks):
+        fail(f"split: backends {[r['backend'] for r in ranks]}, meshes "
+             f"{[r['mesh_shape'] for r in ranks]}")
+    r0 = ranks[0]
+    for arch, keys, want in (
+            (ARCH, ("heads", "kv_heads", "ff", "vocab", "experts"),
+             {"flash_attention": 2, "dispatch_positions": 2 * (
+                 1 + SPLIT_STEPS)}),
+            (SSM_ARCH, ("vocab", "inner"), {"mamba_scan": 2})):
+        for r in ranks:
+            rec = r["a"][arch]
+            if not all(rec["split"][k] for k in keys):
+                fail(f"split: {arch} did not split {keys}: {rec['split']}")
+            counts = {k: v for k, v in rec["counts"].items() if v}
+            if counts != want:
+                fail(f"split: {arch} launches {counts}, expected {want}")
+        rec = r0["a"][arch]
+        steady = rec["step_ms"][1:]
+        log(f"[split] {arch} x 2 layers f32 on the (1, 2) mesh, prompts "
+            f"{rec['lens']} into caches of {SPLIT_MAX_LEN} (blocks "
+            f"{[r['a'][arch]['seq'] for r in ranks]}), {SPLIT_STEPS} decode "
+            f"steps: every call's logits within {max(rec['logit_errs']):.3e}"
+            f" x max|logit| of the unsharded LM on the CPU (plain versions; "
+            f"bound {LOGIT_TOL}), greedy tokens equal, the gathered cache "
+            f"within {rec['cache_err']:.3e} x max (prompts {rec['attempts']}"
+            f" of {SPLIT_TRIES}); a rank's cache {rec['cache_shapes'][:2]}; "
+            f"launches {dict((k, v) for k, v in rec['counts'].items() if v)}"
+            f", local shapes {rec['shapes']}; prefill {rec['prefill_s']:.3f}"
+            f" s, decode {sum(steady) / len(steady):.1f} ms a step")
+    n = get_config(ARCH).n_layers
+    b = [r["b"] for r in ranks]
+    for r in b:
+        steady = r["step_ms"][1:]
+        r["mean_ms"] = sum(steady) / len(steady)
+    rb = b[0]
+    p_steady = plain["step_ms"][1:]
+    log(f"[split] {ARCH} full width and depth bf16 on the (1, 2) mesh, "
+        f"{SPLIT_PROMPTS} prompts ({rb['tokens']} tokens) into caches of "
+        f"{SPLIT_B_MAX_LEN}, {SPLIT_B_STEPS} decode steps fed the unsharded"
+        f" run's tokens: on its own routing every call's logits within "
+        f"{max(rb['free_errs']):.3e} x max|logit| of the unsharded run on "
+        f"the card (median call {np.median(rb['free_errs']):.3e}), "
+        f"{rb['turned'][0]} of {rb['turned'][1]} tokens' sets of experts "
+        f"turned, "
+        f"greedy agreement {rb['agreement']:.4f}; on the unsharded run's "
+        f"routing within {max(rb['logit_errs']):.3e} (bound "
+        f"{SPLIT_BF16_TOL}); launches a rank: prefill "
+        f"{dict((k, v) for k, v in rb['prefill_counts'].items() if v)}, "
+        f"{n} positions a decode step; local shapes "
+        f"{rb['shapes']}; a rank's cache {rb['cache_shapes'][0]}")
+    log(f"[split] prefill {rb['tokens'] / b[0]['warm_prefill_s']:.0f} / "
+        f"{rb['tokens'] / b[1]['warm_prefill_s']:.0f} tokens/s (ranks 0 / 1,"
+        f" the second prefill; the first "
+        f"{rb['tokens'] / b[0]['prefill_s']:.0f}; unsharded "
+        f"{plain['tokens'] / plain['prefill_s']:.0f}), decode "
+        f"{b[0]['mean_ms']:.1f} / {b[1]['mean_ms']:.1f} ms a step "
+        f"(unsharded {sum(p_steady) / len(p_steady):.1f}; steps 1-"
+        f"{SPLIT_B_STEPS - 1}), peak {b[0]['peak_bytes']:,} / "
+        f"{b[1]['peak_bytes']:,} bytes a rank ({b[0]['peak_bytes'] / 1e9:.2f}"
+        f" / {b[1]['peak_bytes'] / 1e9:.2f} GB; unsharded "
+        f"{plain['peak_bytes'] / 1e9:.2f} GB); gloo up in "
+        f"{r0['init_s']:.2f}s, the ranks {wall:.1f}s ({smi})")
+    for r, res in enumerate(b):
+        prof = res["profile"]
+        log(f"[split] rank {r}, one decode step under torch.profiler: "
+            f"{prof['wall_ms']:.1f} ms, of it {prof['gloo_ms']:.1f} ms of "
+            f"host time in {prof['gloo_calls']} gloo collectives "
+            f"({', '.join(prof['gloo_kinds'])}), device busy "
+            f"{prof['busy_ms']:.1f} ms ({smi})")
+    launches = {name: rb["prefill_counts"][name] + (
+        SPLIT_B_STEPS * n if name == "dispatch_positions"
+        else 0) for name in rb["prefill_counts"]}
+    launches["mamba_scan"] = r0["a"][SSM_ARCH]["counts"]["mamba_scan"]
+    shutil.rmtree(SPLIT_OUT, ignore_errors=True)
+    log(f"[phase 16] {time.perf_counter() - t16:.1f}s")
+    return launches
+
+
+
 def start_dryrun():
     """15b's dry run started in a child (python -m
     repro_torch.launch.dryrun); returns (process, start time, env)."""
@@ -3438,6 +4015,11 @@ def main() -> int:
             k["mesh_launches"] = mesh[k["name"]]
         if k["name"] in tp:
             k["tp_launches"] = tp[k["name"]]
+    torch.cuda.empty_cache()
+    split = phase_serve_split(smi, dev)
+    for k in kernels:
+        if k["name"] in split:
+            k["split_serve_launches"] = split[k["name"]]
 
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3459,4 +4041,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == [TP_CHILD]:
         sys.exit(tp_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                           sys.argv[5], sys.argv[6]))
+    if sys.argv[1:2] == [SPLIT_CHILD]:
+        sys.exit(split_child(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4], sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -37,15 +37,16 @@ The record has the JAX package's keys (``src/repro/launch/dryrun.py``):
   * ``lower_s``: seconds to build and place the state; ``compile_s``:
     seconds of the counted step.
 
-The train cells compute each model-axis rank's share of its rows
+Every cell computes each model-axis rank's share of its rows
 (``models.distributed``'s split: heads, ff columns, experts, vocabulary
 columns, Mamba channels; a dim the plans leave whole, such as granite's 8
-KV heads on 16 ranks, is computed on every rank), so their FLOPs and the
-activations' all-reduces over ``model`` are the split step's. The serve
-cells gather every weight whole and run on the rank's rows of the cache at
-its full length (the cache's sequence split over ``model`` counts in its
-bytes; the port has no sequence-parallel attention), so their
-``useful_compute_ratio`` stays about 1 / the model axis's size.
+KV heads on 16 ranks, is computed on every rank), so its FLOPs and the
+activations' collectives over ``model`` are the split's. The serve cells
+hold the rank's block of the cache (``LM.init_cache`` under the mesh: its
+rows, its block of the KV sequence over ``model`` — over ``("data",
+"model")`` for ``long_500k``'s one row —, its SSM channels): prefill
+writes the prompt rows of its block, decode attends every head over its
+block and merges the partial softmaxes over the sequence's ranks.
 
 Import this module only to run a cell: it starts the fake world itself
 (``torch.testing._internal.distributed.fake_pg``), never at import.
@@ -68,14 +69,14 @@ from ..configs import SHAPES, arch_shape_cells, get_config
 from ..configs.base import ModelConfig, ShapeSpec
 from ..models import LM
 from ..models.common import dtype_of, logical_axis_rules
-from ..models.distributed import local_chunk, to_local
+from ..models.distributed import to_local
 from ..optim import AdamW, warmup_cosine
 from ..optim.adamw import tree_leaves
 from ..train import make_train_step
 from ..train.sharded import shard_params, shard_state
 from .mesh import make_production_mesh, set_mesh
 from .roofline import collective_stats, roofline_report
-from .shardings import activation_rules, cache_pspecs, placements
+from .shardings import activation_rules
 
 __all__ = ["input_specs", "lower_cell", "main"]
 
@@ -183,15 +184,12 @@ def _lower_one(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool,
         else:
             lm.to(torch.bfloat16)        # serving holds bf16 weights
             sharding = shard_params(lm, mesh, rules)
-            whole = lm.init_cache(shape.global_batch, shape.seq_len)
-            specs = cache_pspecs(whole, cfg, mesh, shape)
-            cache_bytes = sum(
-                _nbytes(local_chunk(t, mesh, placements(mesh, s)))
-                for t, s in zip(_leaves(whole), _leaves(specs)))
+            # the rank's block of the cache, as the plans place it
+            cache = lm.init_cache(shape.global_batch, shape.seq_len)
+            cache_bytes = sum(_nbytes(t) for t in _leaves(cache))
             state_bytes = _local_bytes(dict(lm.named_parameters())) \
                 + cache_bytes
             rows = {k: sharding.batch.rows(v) for k, v in inputs.items()}
-            cache = lm.init_cache(rows["tokens"].shape[0], shape.seq_len)
             fn = lm.prefill if shape.kind == "prefill" else lm.decode_step
 
             def run():

@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 from torch.distributed.tensor import Replicate, Shard
 
 from ..configs.base import ModelConfig, ShapeSpec
@@ -40,7 +41,7 @@ from .mesh import mesh_axis_sizes
 
 __all__ = ["moe_layout", "activation_rules", "compute_split",
            "param_pspecs", "moment_pspecs", "state_pspecs", "batch_pspecs",
-           "cache_pspecs", "placements"]
+           "cache_pspecs", "serve_shape", "cache_split", "placements"]
 
 
 def _fit(dim: int, size: int, axis):
@@ -122,15 +123,17 @@ def activation_rules(cfg: ModelConfig, mesh, shape: ShapeSpec | None = None
 
 def compute_split(cfg: ModelConfig, mesh, rules: dict | None = None
                   ) -> dict[str, bool]:
-    """Which dims the train step computes split over ``model``, read from
-    the activation rules (``rules``, default this config's on ``mesh``) and
-    fitted as the parameter plans cut the weights: ``heads`` and
-    ``kv_heads`` (query and KV heads), ``ff`` (the MLPs' hidden dim),
-    ``vocab`` (the padded vocabulary), ``experts`` (``moe_layout``'s
-    ``e_ax == "model"``), ``moe_ff`` (the experts' hidden dim: the legacy
-    layout, or ``act_ff == "model"``) and ``inner`` (Mamba's channels,
-    which the JAX package constrains by the ``ff`` rule). All False on a
-    model axis of size 1 (or none): the step computes as without a mesh."""
+    """Which dims the train step and serving compute split over ``model``,
+    read from the activation rules (``rules``, default this config's on
+    ``mesh``; a serve cell's ``activation_rules(cfg, mesh, shape)`` differ
+    only in ``batch``) and fitted as the parameter plans cut the weights:
+    ``heads`` and ``kv_heads`` (query and KV heads), ``ff`` (the MLPs'
+    hidden dim), ``vocab`` (the padded vocabulary), ``experts``
+    (``moe_layout``'s ``e_ax == "model"``), ``moe_ff`` (the experts'
+    hidden dim: the legacy layout, or ``act_ff == "model"``) and ``inner``
+    (Mamba's channels, which the JAX package constrains by the ``ff``
+    rule). All False on a model axis of size 1 (or none): the step
+    computes as without a mesh."""
     ax = mesh_axis_sizes(mesh)
     m = ax.get("model", 1)
     if m == 1:
@@ -313,6 +316,26 @@ def cache_pspecs(cache, cfg: ModelConfig, mesh, shape: ShapeSpec):
         raise TypeError(f"unexpected cache node {type(node)}")
 
     return walk(cache)
+
+
+def serve_shape(batch: int, max_len: int) -> ShapeSpec:
+    """The serving cell of a cache of ``batch`` rows (the whole batch) and
+    ``max_len`` positions, as ``activation_rules`` and ``cache_pspecs``
+    read a shape."""
+    return ShapeSpec("serve", max_len, batch, "decode")
+
+
+def cache_split(cfg: ModelConfig, mesh, shape: ShapeSpec) -> tuple:
+    """The mesh dims that cut the KV cache's sequence in ``shape``'s cell
+    (``global_batch`` rows, ``seq_len`` positions), in mesh order: the
+    sequence entry of ``cache_pspecs`` (``model``, or ``("data",
+    "model")`` where the batch does not split), ``()`` where the length
+    does not divide."""
+    meta = torch.empty((1, shape.global_batch, shape.seq_len,
+                        max(cfg.n_kv_heads, 1), max(cfg.head_dim_, 1)),
+                       device="meta")
+    seq = cache_pspecs(KVCache(meta, meta), cfg, mesh, shape).k[2]
+    return (seq,) if isinstance(seq, str) else tuple(seq or ())
 
 
 # ---------------------------------------------------------------------------

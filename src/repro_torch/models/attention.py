@@ -24,6 +24,15 @@ uses each weight. The caches are written in
 place (prefill fills rows ``[0, S)``, decode row ``lengths``), where the
 JAX package returns updated copies: the serving engine's caches are the
 largest tensors on the card.
+
+Serving splits as training does (``attn_prefill`` / ``attn_decode``'s
+``split``), and with ``seq`` (a ``models.distributed.SeqSplit``) the cache
+is a rank's block of the sequence, for every KV head: prefill writes the
+prompt rows that fall in it (every KV head's, gathered over ``model``
+where they split); decode writes the new row on the rank that holds its
+position, attends every head's query (gathered over ``model``) over the
+block as a partial softmax (``decode_partials``) and merges the blocks
+over the sequence's ranks.
 """
 
 from __future__ import annotations
@@ -39,8 +48,8 @@ from .common import Dense, dense, dense_row, reset_parameters, rope
 from .distributed import LOCAL, PARTS, WHOLE, columns
 
 __all__ = ["Attention", "KVCache", "attn_init", "attn_train", "attn_prefill",
-           "attn_decode", "chunked_attention", "local_kv_heads",
-           "split_modes"]
+           "attn_decode", "decode_partials", "chunked_attention",
+           "local_kv_heads", "split_modes"]
 
 _NEG = -2.0 ** 30  # large-negative mask value safe in bf16/f32
 
@@ -188,7 +197,19 @@ def attn_train(p, x, cfg, *, positions=None, is_global=True, split=None):
     return dense(p["wo"], out.reshape(b, s, -1), compute_dtype)
 
 
-def attn_prefill(p, x, cfg, cache: KVCache, *, lengths, is_global=True):
+def _write_prompt(cache: KVCache, k, v, seq=None) -> None:
+    """Rows ``[0, S)`` of k, v (B, S, KV, hd) into the cache: all of them,
+    or with ``seq`` (a ``models.distributed.SeqSplit``) those in this
+    rank's block, at their place in it."""
+    s = k.shape[1]
+    lo, hi = (0, s) if seq is None else (seq.lo, min(s, seq.lo + seq.block))
+    if hi > lo:
+        cache.k[:, :hi - lo] = k[:, lo:hi].to(cache.k.dtype)
+        cache.v[:, :hi - lo] = v[:, lo:hi].to(cache.v.dtype)
+
+
+def attn_prefill(p, x, cfg, cache: KVCache, *, lengths, is_global=True,
+                 split=None, seq=None):
     """Prompt processing: full self-attention AND KV-cache population.
 
     lengths: (B,) int32 real lengths of the right-padded prompts, each in
@@ -197,50 +218,137 @@ def attn_prefill(p, x, cfg, cache: KVCache, *, lengths, is_global=True):
     cache rows beyond each sequence's length are never read by decode).
     Writes rows ``[0, S)`` of ``cache`` (B, L, KV, hd) in place. Returns
     (y, cache).
+
+    With ``split.heads`` the weights are this rank's heads' (module
+    docstring) and the kernel runs on them; the cache takes every KV
+    head (gathered over ``model`` where they split, else projected from
+    the whole ``wk``/``wv``). With ``seq`` the cache is this rank's block
+    of the sequence and takes the prompt rows that fall in it.
     """
     compute_dtype = x.dtype
     b, s, _ = x.shape
     pos = torch.arange(s, device=x.device).expand(b, s)
     safe_pos = torch.where(pos < lengths[:, None], pos, 0)
+    tp = split is not None and split.heads
+    if tp:
+        x = split.copy_to(x)
     q, k, v = _project_qkv(p, x, cfg, safe_pos, compute_dtype)
-    out = _flash(q, k, v, window=None if is_global else cfg.sliding_window,
+    kq, vq = k, v
+    if tp and split.kv_heads:
+        k, v = split.gather_from(k, 2), split.gather_from(v, 2)
+    elif tp:
+        first, count, index = local_kv_heads(cfg, split)
+        kq, vq = k[:, :, first:first + count], v[:, :, first:first + count]
+        if index is not None:
+            index = index.to(k.device)
+            kq, vq = kq[:, :, index], vq[:, :, index]
+    out = _flash(q, kq, vq, window=None if is_global else cfg.sliding_window,
                  softcap=cfg.attn_logit_softcap, lengths=lengths)
-    y = dense(p["wo"], out.reshape(b, s, -1), compute_dtype)
-    cache.k[:, :s] = k.to(cache.k.dtype)
-    cache.v[:, :s] = v.to(cache.v.dtype)
+    if tp:
+        y = dense_row(p["wo"], out.reshape(b, s, -1), split, compute_dtype)
+    else:
+        y = dense(p["wo"], out.reshape(b, s, -1), compute_dtype)
+    _write_prompt(cache, k, v, seq)
     return y, cache
 
 
-def attn_decode(p, x, cfg, cache: KVCache, lengths, *, is_global=True):
+def _write_row(cache: KVCache, k_new, v_new, lengths, seq=None) -> None:
+    """Each sequence's new row (B, 1, KV, hd) at its position ``lengths``;
+    with ``seq`` only on the rank whose block holds it: a masked write on
+    the device (every rank rewrites a row of its block, the owner's with
+    the new values, the others' with what they held)."""
+    b = k_new.shape[0]
+    bidx = torch.arange(b, device=k_new.device)
+    if seq is None:
+        cache.k[bidx, lengths] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[bidx, lengths] = v_new[:, 0].to(cache.v.dtype)
+        return
+    idx = lengths - seq.lo
+    mine = ((idx >= 0) & (idx < seq.block))[:, None, None]
+    idx = idx.clamp(0, seq.block - 1)
+    for c, new in ((cache.k, k_new), (cache.v, v_new)):
+        old = c[bidx, idx].to(new.dtype)
+        c[bidx, idx] = torch.where(mine, new[:, 0], old).to(c.dtype)
+
+
+def decode_partials(q, k, v, lengths, cfg, *, lo: int = 0, is_global=True):
+    """One query token's attention over a block of the cache, as a partial
+    softmax (``models.distributed.merge_softmax``): q (B, H, hd) in the
+    compute dtype, k, v (B, Lb, KV, hd) the cache's positions ``[lo, lo +
+    Lb)``. The same logits, mask (``t <= lengths``, the window unless
+    ``is_global``), soft-cap and mask value as the whole cache's. Returns
+    (m, s, o): (B, KV, rep) the max logit and the sum of ``exp(logit -
+    m)``, (B, KV, rep, hd) the values weighed by them, float32."""
+    logits = _decode_logits(q, k, lengths, cfg, lo, is_global)
+    m = logits.amax(-1)
+    e = torch.exp(logits - m[..., None])
+    o = torch.einsum("bkrt,btkh->bkrh", e.to(q.dtype), v.to(q.dtype))
+    return m, e.sum(-1), o.float()
+
+
+def _decode_logits(q, k, lengths, cfg, lo, is_global):
+    """(B, KV, rep, Lb) float32 logits of q (B, H, hd) against the cache
+    block k (B, Lb, KV, hd) of positions ``[lo, lo + Lb)``, masked."""
+    b, _, hd = q.shape
+    kvh = cfg.n_kv_heads
+    qg = q.reshape(b, kvh, cfg.n_heads // kvh, hd)
+    logits = torch.einsum("bkrh,btkh->bkrt", qg, k.to(q.dtype)).float()
+    logits = _softcap(logits * hd ** -0.5, cfg.attn_logit_softcap)
+    t = lo + torch.arange(k.shape[1], device=q.device)
+    mask = t[None, :] <= lengths[:, None]              # (B, Lb)
+    if cfg.sliding_window is not None and not is_global:
+        mask = mask & ((lengths[:, None] - t[None, :]) < cfg.sliding_window)
+    return torch.where(mask[:, None, None, :], logits,
+                       torch.full((), _NEG, device=q.device))
+
+
+def attn_decode(p, x, cfg, cache: KVCache, lengths, *, is_global=True,
+                split=None, seq=None):
     """One-token decode against the KV cache.
 
     x: (B, 1, d); lengths: (B,) current length per sequence (the new token's
     position). Writes row ``lengths`` of ``cache`` in place. Returns (y,
     cache).
+
+    With ``split.heads`` a rank projects its heads' queries (and its KV
+    heads', where they split) and gathers every head's over ``model``
+    (``(B, 1, m, n, hd)``: each rank's heads in rank order).
+    With ``seq`` the cache is this rank's block of the sequence: the rank
+    that holds position ``lengths`` writes the new row, every rank attends
+    every head over its block, and the partial softmaxes are merged over
+    the sequence's ranks (``SeqSplit.merge_softmax``); a rank keeps its
+    own heads' output for the row-parallel ``wo``.
     """
     compute_dtype = x.dtype
     b = x.shape[0]
     hd = cfg.head_dim_
-    positions = lengths[:, None]                       # (B, 1)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions, compute_dtype)
-    bidx = torch.arange(b, device=x.device)
-    cache.k[bidx, lengths] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[bidx, lengths] = v_new[:, 0].to(cache.v.dtype)
-
-    kvh = cfg.n_kv_heads
-    rep = cfg.n_heads // kvh
-    qg = q.reshape(b, kvh, rep, hd)
-    logits = torch.einsum("bkrh,btkh->bkrt", qg,
-                          cache.k.to(compute_dtype)).float()
-    logits = _softcap(logits * hd ** -0.5, cfg.attn_logit_softcap)
-    t = torch.arange(cache.k.shape[1], device=x.device)
-    mask = t[None, :] <= lengths[:, None]              # (B, L)
-    if cfg.sliding_window is not None and not is_global:
-        mask = mask & ((lengths[:, None] - t[None, :]) < cfg.sliding_window)
-    logits = torch.where(mask[:, None, None, :], logits,
-                         torch.full((), _NEG, device=x.device))
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkrt,btkh->bkrh", w.to(compute_dtype),
-                       cache.v.to(compute_dtype))
+    tp = split is not None and split.heads
+    if tp:
+        x = split.copy_to(x)
+    q, k_new, v_new = _project_qkv(p, x, cfg, lengths[:, None],
+                                   compute_dtype)
+    if tp:      # every head's query (and new K/V row), in one all-gather
+        parts = (q, k_new, v_new) if split.kv_heads else (q,)
+        whole = split.gather_from(torch.cat(parts, dim=2)[:, :, None], 2)
+        parts = [t.flatten(2, 3) for t in whole.split(
+            [t.shape[2] for t in parts], dim=3)]
+        q, k_new, v_new = parts if split.kv_heads else (parts[0], k_new,
+                                                         v_new)
+    seq = seq if seq is not None and seq.size > 1 else None
+    _write_row(cache, k_new, v_new, lengths, seq)
+    q = q[:, 0]                                        # (B, H, hd)
+    if seq is None:
+        logits = _decode_logits(q, cache.k, lengths, cfg, 0, is_global)
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkrt,btkh->bkrh", w.to(compute_dtype),
+                           cache.v.to(compute_dtype))
+    else:
+        out = seq.merge_softmax(*decode_partials(
+            q, cache.k, cache.v, lengths, cfg, lo=seq.lo,
+            is_global=is_global)).to(compute_dtype)
     out = out.reshape(b, 1, cfg.n_heads * hd)
+    if tp:
+        n = out.shape[-1] // split.size
+        out = out[..., split.block(n):split.block(n) + n]
+        return dense_row(p["wo"], out, split, compute_dtype), cache
     return dense(p["wo"], out, compute_dtype), cache

@@ -33,6 +33,13 @@ cut ``in_proj`` into blocks that do not follow the channels and the
 unembedding along d, as the JAX package's do) has parts, which are summed
 (``PARTS``). Kernels only ever see plain tensors.
 
+Serving splits the same way over ``model`` (``LM.prefill`` /
+``decode_step``, under ``no_grad``), and each rank holds its block of the
+cache (``SeqSplit``): the KV cache's sequence cut over the mesh dims
+``launch.shardings.cache_split`` reads from the plans. Decode attends each
+block apart and merges the partial softmaxes over the sequence's ranks
+(``merge_softmax``: the max all-reduced first, then the rescaled sums).
+
 Each collective runs on the process group of one mesh dim and is skipped
 where that dim has size 1, and a model axis of size 1 splits nothing, so a
 (1, 1) mesh computes what the unsharded LM does, bit for bit.
@@ -46,9 +53,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
-__all__ = ["BatchGroup", "ModelSplit", "LOCAL", "WHOLE", "PARTS",
-           "columns", "to_local", "local_chunk", "gather_full", "sum_shard",
-           "gathered"]
+__all__ = ["BatchGroup", "ModelSplit", "SeqSplit", "LOCAL", "WHOLE",
+           "PARTS", "columns", "merge_softmax", "merge_blocks", "map_cache",
+           "to_local", "local_chunk", "gather_full", "sum_shard", "gathered"]
 
 LOCAL, WHOLE, PARTS = "local", "whole", "parts"
 
@@ -186,12 +193,87 @@ class ModelSplit:
         return [(k * part + self.block(n), n) for k in range(parts)]
 
 
+def merge_softmax(m, s, o, amax, add):
+    """Attention over several blocks of keys from each block's partial
+    softmax: ``m`` (..., ) the block's max logit, ``s`` the sum of
+    ``exp(logit - m)`` and ``o`` (..., hd) the values weighed by them.
+    ``amax`` and ``add`` reduce over the blocks (a collective, or a sum
+    over a stacked dim): each block is rescaled to the max over all blocks
+    (a block wholly masked, every logit at the mask value, weighs
+    ``exp(mask - max) = 0`` there, whatever its own sums), then the
+    values' sum is divided by the weights' (both summed in one reduction).
+    Returns (..., hd) float32."""
+    top = amax(m)
+    scale = torch.exp(m - top)
+    both = add(torch.cat([o * scale[..., None], (s * scale)[..., None]],
+                         dim=-1))
+    return both[..., :-1] / both[..., -1:]
+
+
+def merge_blocks(m, s, o) -> torch.Tensor:
+    """``merge_softmax`` of blocks stacked on dim 0, on one device."""
+    return merge_softmax(m, s, o, lambda t: t.amax(0, keepdim=True),
+                         lambda t: t.sum(0))
+
+
+class SeqSplit:
+    """The KV cache's sequence split in serving: the mesh dims that cut
+    the cache's sequence (``launch.shardings.cache_split``: ``model``, or
+    ``("data", "model")`` where the batch does not split), flattened in
+    mesh order, and this rank's block ``[lo, lo + block)`` of ``max_len``.
+    A reduction over the flattened group is one over each of its dims in
+    turn; a dim of size 1 issues none, so on one rank (``size`` 1) decode
+    attends the whole cache as without a mesh."""
+
+    def __init__(self, mesh, axes, max_len: int):
+        names = list(mesh.mesh_dim_names)
+        self.axes = tuple(axes)
+        sizes = [mesh.size(names.index(a)) for a in self.axes]
+        self.size = math.prod(sizes)
+        index = 0
+        for a, n in zip(self.axes, sizes):
+            index = index * n + mesh.get_local_rank(a)
+        self.groups = [mesh.get_group(a) for a, n in zip(self.axes, sizes)
+                       if n > 1]
+        if max_len % self.size:
+            raise ValueError(f"a cache of {max_len} positions does not "
+                             f"split over {self.size} ranks")
+        self.max_len = max_len
+        self.block = max_len // self.size
+        self.lo = index * self.block
+
+    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        t = t.contiguous()
+        for group in self.groups:
+            dist.all_reduce(t, op=op, group=group)
+        return t
+
+    def merge_softmax(self, m, s, o) -> torch.Tensor:
+        """The attention over the whole cache from this rank's partial
+        softmax over its block (``merge_softmax``): the max all-reduced
+        first, then the rescaled sums, two all-reduces a dim (no
+        autograd: serving only)."""
+        return merge_softmax(
+            m, s, o, lambda t: self._reduce(t.clone(), dist.ReduceOp.MAX),
+            lambda t: self._reduce(t, dist.ReduceOp.SUM))
+
+
 def columns(w: torch.Tensor, spans) -> torch.Tensor:
     """The columns (last dim) of ``w`` in ``spans``, (first, count) pairs,
     in order: the part of a weight gathered whole (``PARTS``) that a rank
     computes with."""
     cut = [w[..., lo:lo + n] for lo, n in spans]
     return cut[0] if len(cut) == 1 else torch.cat(cut, dim=-1)
+
+
+def map_cache(fn, tree, *rest):
+    """``fn`` over the tensors of a serving cache (a ``KVCache`` or
+    ``SSMCache``, or a dict of them) and of trees laid out as it is (its
+    specs, its placements), in the cache's layout."""
+    if isinstance(tree, dict):
+        return {k: map_cache(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return type(tree)(*(fn(*xs) for xs in zip(tree, *rest)))
 
 
 def to_local(t: torch.Tensor) -> torch.Tensor:

@@ -31,8 +31,11 @@ routes over it. The full-sequence forward (``loss``, ``apply``) computes
 each model rank's share: its heads, ff columns, experts, Mamba channels
 and vocabulary columns. The loss takes the log-sum-exp and the label's
 logit over the split vocabulary (``_split_logz_ll``); ``apply`` gathers
-the logits whole. ``prefill`` and ``decode_step`` gather every weight
-whole.
+the logits whole. ``prefill`` and ``decode_step`` split the same way, from
+the rank's block of the cache (``init_cache`` under the mesh: its rows,
+its block of the KV sequence, its SSM channels, as the plans place it;
+``seq`` is the sequence's split), and return logits whole over the
+vocabulary.
 """
 
 from __future__ import annotations
@@ -52,7 +55,15 @@ from .attention import (
     attn_train,
 )
 from .attention import split_modes as attn_modes
-from .distributed import LOCAL, PARTS, WHOLE, columns, gathered
+from .distributed import (
+    LOCAL,
+    PARTS,
+    WHOLE,
+    columns,
+    gathered,
+    local_chunk,
+    map_cache,
+)
 from .common import (
     Dense,
     Embed,
@@ -265,6 +276,7 @@ class LM(nn.Module):
         self._weights_key = None
         self.batch = None       # a sharded LM's BatchGroup
         self.split = None       # and its ModelSplit
+        self.seq = None         # and its cache's SeqSplit (init_cache)
 
     # ------------------------------------------------------------------
     # parameters
@@ -352,10 +364,10 @@ class LM(nn.Module):
             return layernorm(p, x)
         return layernorm_np(x)
 
-    def _ffn_apply(self, p, x, split=None):
+    def _ffn_apply(self, p, x, split=None, batch=None):
         if "moe" in p:
             return moe_apply(p["moe"], x, self.cfg, mode=self.cfg.moe_mode,
-                             batch=self.batch, split=split)
+                             batch=batch, split=split)
         return (mlp_apply(p["mlp"], x, activation=self.cfg.activation,
                           split=split),
                 _zero_aux(x.device))
@@ -408,14 +420,15 @@ class LM(nn.Module):
                                 "norm2": sp["norm2"], "ffn": sp["ffn"]})]
 
     def _stage(self, sp, x, mix, is_global, cache=None, remat_parts=False,
-               split=None):
+               split=None, batch=None):
         """One stage: per sub-layer ``x + mixer(norm1(x))``, then ``x +
         ffn(norm2(x))`` where it has an FFN. ``mix(kind, p, h, cache,
         is_global)`` runs the mixer. With ``remat_parts`` each mixer and FFN
         block (norm included) is checkpointed apart, so the backward keeps
         their outputs and recomputes their insides. Each block gathers its
-        weights as it runs (``_full``; as ``split`` computes on them).
-        Returns (x, aux)."""
+        weights as it runs (``_full``; as ``split`` computes on them). The
+        MoE aux loss is ``batch``'s share (a ``BatchGroup``; serving, which
+        drops it, passes none). Returns (x, aux)."""
         aux = _zero_aux(x.device)
         for kind, key, sub in self._sublayers(sp):
             c = cache if key is None or cache is None else cache[key]
@@ -432,7 +445,8 @@ class LM(nn.Module):
                     p = self._full({"norm2": sub["norm2"], "ffn": sub["ffn"]},
                                    split)
                     return self._ffn_apply(p["ffn"],
-                                           self._norm(p["norm2"], h), split)
+                                           self._norm(p["norm2"], h), split,
+                                           batch)
 
                 h, a = _checkpointed(ffn, x) if remat_parts else ffn(x)
                 x = x + h
@@ -449,9 +463,14 @@ class LM(nn.Module):
         token positions."""
         logits, aux = self._forward(self.weights(), tokens,
                                     prefix_embed=prefix_embed)
+        return self._whole(logits), aux
+
+    def _whole(self, logits):
+        """Logits over the whole vocabulary: this rank's columns gathered
+        over ``model`` where the vocabulary splits."""
         if self.split is not None and self.split.vocab:
-            logits = self.split.gather_from(logits, -1)
-        return logits, aux
+            return self.split.gather_from(logits, -1)
+        return logits
 
     def loss(self, batch, *, remat=False):
         """batch: {"tokens": (B, S), "labels": (B, S) with -1 = masked,
@@ -517,38 +536,34 @@ class LM(nn.Module):
         for sp, is_global in zip(w["stages"], self.stage_meta()):
             if whole:
                 x, a = _checkpointed(self._stage, sp, x, mix, is_global,
-                                     None, False, split)
+                                     None, False, split, self.batch)
             else:
                 x, a = self._stage(sp, x, mix, is_global,
-                                   remat_parts=remat, split=split)
+                                   remat_parts=remat, split=split,
+                                   batch=self.batch)
             aux = {key: aux[key] + a[key] for key in aux}
         x = self._norm(w["final_norm"], x)
         if n_prefix:
             x = x[:, n_prefix:]
         return self._logits(w, x, split), aux
 
-    def init_cache(self, batch: int, max_len: int, dtype=None):
-        """Zero caches with a leading ``n_stages`` axis on the LM's device:
-        KV caches (.., batch, max_len, KV, hd) in ``kv_cache_dtype``, SSM
-        state (.., batch, di, N) and conv window (.., batch, K-1, di) in the
-        compute dtype (``dtype`` overrides both), in the family's layout
-        (see the class docstring)."""
+    def _zero_cache(self, batch: int, max_len: int, dtype, device):
         cfg = self.cfg
         kv_dtype = dtype_of(cfg.kv_cache_dtype) if dtype is None else dtype
         ssm_dtype = self.compute_dtype if dtype is None else dtype
-        lead, dev = (self.n_stages, batch), self.device
+        lead = (self.n_stages, batch)
 
         def kv():
             shape = lead + (max_len, cfg.n_kv_heads, cfg.head_dim_)
-            return KVCache(torch.zeros(shape, dtype=kv_dtype, device=dev),
-                           torch.zeros(shape, dtype=kv_dtype, device=dev))
+            return KVCache(torch.zeros(shape, dtype=kv_dtype, device=device),
+                           torch.zeros(shape, dtype=kv_dtype, device=device))
 
         def ssm():
             return SSMCache(
                 torch.zeros(lead + (cfg.d_inner, cfg.ssm_state),
-                            dtype=ssm_dtype, device=dev),
+                            dtype=ssm_dtype, device=device),
                 torch.zeros(lead + (cfg.ssm_conv - 1, cfg.d_inner),
-                            dtype=ssm_dtype, device=dev))
+                            dtype=ssm_dtype, device=device))
 
         if cfg.family == "ssm":
             return ssm()
@@ -557,15 +572,52 @@ class LM(nn.Module):
                     for j in range(cfg.attn_every)}
         return kv()
 
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        """Zero caches with a leading ``n_stages`` axis on the LM's device:
+        KV caches (.., batch, max_len, KV, hd) in ``kv_cache_dtype``, SSM
+        state (.., batch, di, N) and conv window (.., batch, K-1, di) in the
+        compute dtype (``dtype`` overrides both), in the family's layout
+        (see the class docstring). On a sharded LM ``batch`` is the whole
+        batch's rows and the cache this rank's block of it, as the plans
+        place it (``train.sharded.cache_layout``: its rows, its block of
+        the KV sequence, its SSM channels); the LM serves from such a cache
+        (``seq``, the sequence's split, is bound to it)."""
+        if self.batch is None:
+            return self._zero_cache(batch, max_len, dtype, self.device)
+        from ..train.sharded import cache_layout   # train builds on models
+        mesh = self.batch.mesh
+        pl, self.seq = cache_layout(self, batch, max_len)
+        return map_cache(lambda t, p: torch.zeros(
+            local_chunk(t, mesh, p).shape, dtype=t.dtype, device=self.device),
+            self._zero_cache(batch, max_len, dtype, "meta"), pl)
+
+    def _serve_seq(self, cache):
+        """The KV sequence's split of a sharded LM's ``cache`` (None: the
+        cache is whole on this rank); refuses a cache whose KV length is
+        not the bound split's block."""
+        seq = self.seq
+        kv = [c for c in (cache.values() if isinstance(cache, dict)
+                          else [cache]) if isinstance(c, KVCache)]
+        if seq is not None and kv and kv[0].k.shape[2] != seq.block:
+            raise ValueError(f"a KV cache of {kv[0].k.shape[2]} positions "
+                             f"a rank, the LM's split holds {seq.block}: "
+                             f"make the cache with init_cache or "
+                             f"train.sharded.shard_cache")
+        return seq
+
     @torch.no_grad()
     def prefill(self, cache, tokens, lengths):
         """Process right-padded prompts and populate the cache.
 
         tokens: (B, S); lengths: (B,) real lengths, each in [1, S] (S <=
         cache max_len; checked when they are given on the host).
-        Returns (last-token logits (B, V) float32, cache)."""
+        Returns (last-token logits (B, V) float32, cache). On a sharded LM
+        the rows are this rank's, the compute its share over ``model``
+        (as ``_forward``'s) and the cache its block (``init_cache``); the
+        logits are whole over the vocabulary."""
         cfg = self.cfg
-        w = self._top(self.weights())
+        split, seq = self.split, self._serve_seq(cache)
+        w = self._top(self.weights(), split)
         tokens = self._as_long(tokens)
         b, s = tokens.shape
         lengths = torch.as_tensor(lengths)
@@ -577,36 +629,42 @@ class LM(nn.Module):
         def mix(kind, p, h, c, is_global):
             if kind == "attn":
                 return attn_prefill(p, h, cfg, c, lengths=lengths,
-                                    is_global=is_global)[0]
-            return ssm_prefill(p, h, cfg, c, mask=mask)[0]
+                                    is_global=is_global, split=split,
+                                    seq=seq)[0]
+            return ssm_prefill(p, h, cfg, c, mask=mask, split=split)[0]
 
-        x = self._embed(w, tokens)
+        x = self._embed(w, tokens, split=split)
         for i, (sp, is_global) in enumerate(zip(w["stages"],
                                                 self.stage_meta())):
-            x, _ = self._stage(sp, x, mix, is_global, _at(cache, i))
+            x, _ = self._stage(sp, x, mix, is_global, _at(cache, i),
+                               split=split)
         x = self._norm(w["final_norm"], x)
         last = x[torch.arange(b, device=self.device),
                  (lengths - 1).clamp_min(0).long()]        # (B, d)
-        return self._logits(w, last), cache
+        return self._whole(self._logits(w, last, split)), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, lengths):
         """tokens: (B, 1) current token; lengths: (B,) its position.
-        Returns (logits (B, 1, V) float32, cache)."""
+        Returns (logits (B, 1, V) float32, cache); on a sharded LM as
+        ``prefill``."""
         cfg = self.cfg
-        w = self._top(self.weights())
+        split, seq = self.split, self._serve_seq(cache)
+        w = self._top(self.weights(), split)
         tokens = self._as_long(tokens)
         lengths = self._as_long(lengths)
 
         def mix(kind, p, h, c, is_global):
             if kind == "attn":
                 return attn_decode(p, h, cfg, c, lengths,
-                                   is_global=is_global)[0]
-            return ssm_decode(p, h, cfg, c)[0]
+                                   is_global=is_global, split=split,
+                                   seq=seq)[0]
+            return ssm_decode(p, h, cfg, c, split=split)[0]
 
-        x = self._embed(w, tokens, positions=lengths[:, None])
+        x = self._embed(w, tokens, positions=lengths[:, None], split=split)
         for i, (sp, is_global) in enumerate(zip(w["stages"],
                                                 self.stage_meta())):
-            x, _ = self._stage(sp, x, mix, is_global, _at(cache, i))
+            x, _ = self._stage(sp, x, mix, is_global, _at(cache, i),
+                               split=split)
         x = self._norm(w["final_norm"], x)
-        return self._logits(w, x), cache
+        return self._whole(self._logits(w, x, split)), cache

@@ -15,13 +15,15 @@ plain PyTorch; the JAX package runs no kernel there either.
 Caches are written in place (``SSMCache`` of the caller's tensors), where
 the JAX package returns updated copies.
 
-Under a split over ``model`` (``ssm_train``'s ``split``, a
-``models.distributed.ModelSplit`` with ``inner``) a rank runs di/m
-channels: its block of ``conv_w``, ``conv_b``, ``dt_proj``, ``dt_bias``,
-``A_log``, ``D``, ``x_proj``'s rows and ``out_proj``'s rows, and the scan
-on them. ``in_proj`` (d, 2 di) is stored cut into m column blocks, which
-do not hold a rank's channels of both halves, so the step gathers it whole
-and takes the rank's columns of the x half and of the z half.
+Under a split over ``model`` (the ``split`` of ``ssm_train``,
+``ssm_prefill`` and ``ssm_decode``, a ``models.distributed.ModelSplit``
+with ``inner``) a rank runs di/m channels: its block of ``conv_w``,
+``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``, ``x_proj``'s rows
+and ``out_proj``'s rows, the scan on them, and its block of the state and
+the conv window in serving. ``in_proj`` (d, 2 di) is stored cut into m
+column blocks, which do not hold a rank's channels of both halves, so the
+step gathers it whole and takes the rank's columns of the x half and of
+the z half.
 ``x_proj`` contracts over the channels: its (B, S, dr + 2N) output is
 all-reduced; ``out_proj`` is row-parallel. ``split_modes`` says how the
 split uses each weight.
@@ -218,11 +220,16 @@ def split_modes(split) -> dict:
     return {"in_proj": PARTS, **dict.fromkeys(_CHANNEL_LEAVES, LOCAL)}
 
 
+def _split_of(split):
+    """``split`` where it cuts the channels, else None."""
+    return split if split is not None and split.inner else None
+
+
 def ssm_train(p, x, cfg, split=None):
     """The full-sequence forward. x: (B, S, d) -> (B, S, d). With
     ``split.inner`` the rank runs its channels (module docstring)."""
     compute_dtype = x.dtype
-    split = split if split is not None and split.inner else None
+    split = _split_of(split)
     if split is not None:
         x = split.copy_to(x)
     xr, z = _mix_in(p, x, split)
@@ -235,24 +242,29 @@ def ssm_train(p, x, cfg, split=None):
     return _gate_out(p, _scan_out(h, c_mat), xc, z, split)
 
 
-def ssm_prefill(p, x, cfg, cache: SSMCache, *, mask):
+def ssm_prefill(p, x, cfg, cache: SSMCache, *, mask, split=None):
     """Prompt processing with state capture. mask: (B, S) bool, False on
     right padding, where steps are identity transitions, so ``h[:, S-1]``
     is the state after each sequence's last real token. Writes the state
     and the conv tail (the last K-1 pre-conv inputs of each sequence) into
-    ``cache`` (B, di, N) / (B, K-1, di) in place. Returns (y, cache)."""
+    ``cache`` (B, di, N) / (B, K-1, di) in place. Returns (y, cache). With
+    ``split.inner`` the rank runs its channels (module docstring) and the
+    cache is its (B, di/m, N) / (B, K-1, di/m) block."""
     compute_dtype = x.dtype
     k = cfg.ssm_conv
-    xr, z = _mix_in(p, x)
+    split = _split_of(split)
+    if split is not None:
+        x = split.copy_to(x)
+    xr, z = _mix_in(p, x, split)
     xr = xr * mask[..., None].to(compute_dtype)
     xc, _ = _causal_depthwise_conv(xr, p["conv_w"].to(compute_dtype),
                                    p["conv_b"].to(compute_dtype))
     xc = F.silu(xc)
-    da, dbx, c_mat = _scan_inputs(p, xc, mask)
+    da, dbx, c_mat = _scan_inputs(p, xc, mask, split)
     h = ops.mamba_scan(da, dbx)
     del da, dbx
     cache.state.copy_(h[:, -1].transpose(1, 2))
-    y = _gate_out(p, _scan_out(h, c_mat), xc, z)
+    y = _gate_out(p, _scan_out(h, c_mat), xc, z, split)
     del h
     lengths = mask.sum(dim=1)                            # (B,)
     idx = (lengths[:, None] - (k - 1)
@@ -264,23 +276,26 @@ def ssm_prefill(p, x, cfg, cache: SSMCache, *, mask):
     return y, cache
 
 
-def ssm_decode(p, x, cfg, cache: SSMCache):
+def ssm_decode(p, x, cfg, cache: SSMCache, split=None):
     """One-token decode. x: (B, 1, d). Updates ``cache`` in place; returns
-    (y, cache)."""
+    (y, cache). With ``split.inner`` as ``ssm_prefill``."""
     compute_dtype = x.dtype
-    xr, z = _mix_in(p, x)                               # (B, 1, di)
+    split = _split_of(split)
+    if split is not None:
+        x = split.copy_to(x)
+    xr, z = _mix_in(p, x, split)                        # (B, 1, di)
     xc, conv_state = _causal_depthwise_conv(
         xr, p["conv_w"].to(compute_dtype), p["conv_b"].to(compute_dtype),
         conv_state=cache.conv)
     xc = F.silu(xc)
-    dt, b_mat, c_mat = _dt(p, xc)                       # (B, 1, ...)
+    dt, b_mat, c_mat = _dt(p, xc, split)                # (B, 1, ...)
     a = -torch.exp(p["A_log"])                          # (di, N)
     da = torch.exp(dt[:, 0, :, None] * a)               # (B, di, N)
     dbx = (dt[:, 0, :, None] * b_mat[:, 0, None, :].float()
            * xc[:, 0, :, None].float())
     h = da * cache.state.float() + dbx
     y = torch.einsum("bdn,bn->bd", h, c_mat[:, 0].float())
-    y = _gate_out(p, y[:, None], xc, z)
+    y = _gate_out(p, y[:, None], xc, z, split)
     cache.state.copy_(h)
     cache.conv.copy_(conv_state)
     return y, cache

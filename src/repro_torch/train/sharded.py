@@ -32,6 +32,12 @@ step, the loop and the checkpoints do with them.
   leaf at a time on every rank and copies its block into the shards
   before reading the next. A rank holds one whole leaf at a time.
 
+* Serving caches: ``cache_layout`` places a cache of the whole batch by
+  ``launch.shardings.cache_pspecs`` (a rank's rows, its block of the KV
+  sequence, its SSM channels); ``LM.init_cache`` on a sharded LM makes
+  the rank's block, ``shard_cache`` cuts it from a whole cache and
+  ``gather_cache`` gathers it whole.
+
 Every collective is skipped on a mesh dim of size 1, so a (1, 1) mesh
 trains bit for bit as the unsharded step does.
 """
@@ -44,20 +50,31 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
 from ..checkpoint import ckpt
-from ..launch.shardings import compute_split, placements, state_pspecs
+from ..launch.shardings import (
+    activation_rules,
+    cache_pspecs,
+    cache_split,
+    compute_split,
+    placements,
+    serve_shape,
+    state_pspecs,
+)
+from ..models.attention import KVCache
 from ..models.common import draws, param_tree
 from ..models.distributed import (
     BatchGroup,
     ModelSplit,
+    SeqSplit,
     gather_full,
     local_chunk,
+    map_cache,
     to_local,
 )
 from ..optim.adamw import AdamW, AdamWState, tree_items, tree_map
 from .state import TrainState
 
 __all__ = ["Sharding", "shard_params", "shard_state", "gather_leaf",
-           "save", "restore"]
+           "cache_layout", "shard_cache", "gather_cache", "save", "restore"]
 
 
 def _dtensor(local, mesh, pl, shape, stride) -> DTensor:
@@ -191,6 +208,60 @@ def shard_state(lm, optimizer: AdamW, mesh, rules: dict, generator=None
     return TrainState(params, AdamWState(
         step=torch.zeros((), dtype=torch.int32),
         m=_rebuild(params, zeros), v=_rebuild(params, zeros))), sharding
+
+
+def cache_layout(lm, batch: int, max_len: int):
+    """A serving cache of ``batch`` rows (the whole batch) and ``max_len``
+    positions on a sharded LM's mesh, as ``launch.shardings.cache_pspecs``
+    places it: (each leaf's placements, in the cache's layout; the KV
+    sequence's split, ``models.distributed.SeqSplit``). The cache's rows
+    must split as the LM's batch does (its rules' ``batch`` axes: shard the
+    LM with ``activation_rules(cfg, mesh, serve_shape(batch, max_len))``
+    where the batch may not divide the batch axes)."""
+    mesh, cfg = lm.batch.mesh, lm.cfg
+    shape = serve_shape(batch, max_len)
+    rows = activation_rules(cfg, mesh, shape)["batch"]
+    if tuple(rows or ()) != lm.batch.axes:
+        raise ValueError(f"a cache of {batch} rows splits them over "
+                         f"{rows}, the LM's batch over {lm.batch.axes}")
+    specs = cache_pspecs(lm._zero_cache(batch, max_len, None, "meta"), cfg,
+                         mesh, shape)
+    return (map_cache(lambda s: placements(mesh, s), specs),
+            SeqSplit(mesh, cache_split(cfg, mesh, shape), max_len))
+
+
+def _dims(cache) -> tuple[int, int]:
+    """(rows, KV positions) of a cache (1 position for SSM alone)."""
+    nodes = list(cache.values()) if isinstance(cache, dict) else [cache]
+    kv = [c for c in nodes if isinstance(c, KVCache)]
+    return nodes[0][0].shape[1], kv[0].k.shape[2] if kv else 1
+
+
+@torch.no_grad()
+def shard_cache(lm, cache):
+    """This rank's block of the whole serving ``cache`` (every rank holds
+    it), as ``cache_layout`` places it, in new tensors; binds the KV
+    sequence's split to the LM, as ``LM.init_cache`` does."""
+    rows, max_len = _dims(cache)
+    pl, lm.seq = cache_layout(lm, rows, max_len)
+    mesh = lm.batch.mesh
+    return map_cache(lambda t, p: local_chunk(t, mesh, p).clone(), cache, pl)
+
+
+@torch.no_grad()
+def gather_cache(lm, cache):
+    """The whole serving cache from every rank's block ``cache`` (a
+    collective: every rank calls it and gets it whole; a float8 cache
+    travels as its bytes, which gloo takes)."""
+    rows, _ = _dims(cache)
+    pl, _ = cache_layout(lm, rows * lm.batch.ranks, lm.seq.max_len)
+    mesh = lm.batch.mesh
+
+    def whole(t, p):
+        if t.is_floating_point() and t.element_size() == 1:
+            return gather_full(t.view(torch.uint8), mesh, p).view(t.dtype)
+        return gather_full(t, mesh, p)
+    return map_cache(whole, cache, pl)
 
 
 def gather_leaf(t: torch.Tensor) -> torch.Tensor:

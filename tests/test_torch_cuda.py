@@ -691,3 +691,49 @@ def test_fp8_kv_cache_decode_on_card(cuda):
     _, host32 = decode(f32, torch.device("cpu"))
     assert (card8.argmax(-1) == card32.argmax(-1)).mean() == (
         host8.argmax(-1) == host32.argmax(-1)).mean()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_merge_on_card_matches_cpu(cuda, dtype):
+    """Split decode's attention on the card: one token's queries against a
+    cache of 64 positions cut by hand into 4 ranks' blocks of 16, each
+    block's partial softmax (``attention.decode_partials``: rows of
+    lengths 3, 20 and 47, so that blocks lie wholly past a length, and
+    gemma3's sliding window of 16 across the blocks' edges) merged
+    (``distributed.merge_blocks``, the algebra ``SeqSplit.merge_softmax``
+    runs with its all-reduces), equal to the same merge on the CPU and to
+    the softmax over the whole cache on the CPU: float32 within 1e-6,
+    bfloat16 (the values weighed in bf16, as the LM's decode does) each
+    output row within BF16_ROW_TOL."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import decode_partials
+    from repro_torch.models.distributed import merge_blocks
+
+    cfg = dataclasses.replace(get_config("gemma3-4b").smoke(),
+                              sliding_window=16)
+    g = torch.Generator().manual_seed(4)
+    b, n, kv, hd = 3, 64, cfg.n_kv_heads, cfg.head_dim_
+    q = torch.randn(b, cfg.n_heads, hd, generator=g).to(dtype)
+    k = torch.randn(b, n, kv, hd, generator=g).to(dtype)
+    v = torch.randn(b, n, kv, hd, generator=g).to(dtype)
+    lengths = torch.tensor([3, 20, 47])
+
+    def merged(device):
+        parts = [decode_partials(q.to(device), k[:, lo:lo + 16].to(device),
+                                 v[:, lo:lo + 16].to(device),
+                                 lengths.to(device), cfg, lo=lo,
+                                 is_global=False)
+                 for lo in range(0, n, 16)]
+        return merge_blocks(*(torch.stack(t) for t in zip(*parts)))
+
+    got, host = merged(cuda).cpu(), merged(torch.device("cpu"))
+    m, s, o = decode_partials(q, k, v, lengths, cfg, is_global=False)
+    whole = o / s[..., None]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, host, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got, whole, rtol=1e-6, atol=1e-6)
+    else:
+        assert _row_rel_err(got, host) <= BF16_ROW_TOL
+        assert _row_rel_err(got, whole) <= BF16_ROW_TOL

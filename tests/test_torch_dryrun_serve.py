@@ -1,9 +1,15 @@
 """``launch.dryrun`` on the decode_32k cells of granite-moe-1b-a400m,
-olmo-1b and jamba-v0.1-52b (bf16 weights and the KV/SSM cache placed by
-the sharding plans), held as ``test_torch_dryrun.py`` holds the train
-cells; the CLI writes its records and ``launch.summarize`` prints the
-JAX package's table of them; ``roofline.collective_stats`` prices
-collectives with the JAX parser's ring conventions."""
+olmo-1b and jamba-v0.1-52b and granite's prefill_32k cell (bf16 weights
+and the KV/SSM cache placed by the sharding plans), held as
+``test_torch_dryrun.py`` holds the train cells; the CLI writes its
+records and ``launch.summarize`` prints the JAX package's table of them;
+``roofline.collective_stats`` prices collectives with the JAX parser's
+ring conventions. The serve cells compute each model rank's share from its
+block of the cache: granite's FLOPs a rank fall at least 8x from what
+every rank computed when prefill and decode gathered every weight whole
+and attended the whole cache (1.8242e11 decode, 2.7058e14 prefill), its
+useful ratios rise by the same factor, and its state bytes a rank are the
+plan's."""
 
 import json
 
@@ -19,14 +25,20 @@ from repro.launch import summarize as jsum  # noqa: E402
 from repro_torch.launch import dryrun, roofline, summarize  # noqa: E402
 
 ARCHS = ["granite-moe-1b-a400m", "olmo-1b", "jamba-v0.1-52b"]
+CELLS = [(arch, "decode_32k") for arch in ARCHS] + [
+    ("granite-moe-1b-a400m", "prefill_32k")]
+# granite's FLOPs a rank with every weight gathered whole and the whole
+# cache attended on every rank, and its state bytes a rank (the plan's)
+WHOLE_FLOPS = {"decode_32k": 1.8242e11, "prefill_32k": 2.7058e14}
+STATE_BYTES = {"decode_32k": 821_856_256, "prefill_32k": 217_876_480}
 
 
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
-    for arch in ARCHS:
-        dryrun.main(["--arch", arch, "--shape", "decode_32k", "--mesh",
-                     "single", "--out", str(out)])
+    for arch, shape in CELLS:
+        dryrun.main(["--arch", arch, "--shape", shape, "--mesh", "single",
+                     "--out", str(out)])
     return out, summarize.load_records(str(out))
 
 
@@ -39,6 +51,21 @@ def test_decode_cell(records, arch):
     assert rec["kind"] == "decode"
 
 
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_granite_serve_cells_compute_a_ranks_share(records, shape):
+    out, _ = records
+    rec = json.loads((out / f"granite-moe-1b-a400m__{shape}__single.json"
+                      ).read_text())
+    check_record(rec)
+    assert rec["kind"] == shape.split("_")[0]
+    flops = rec["cost"]["flops"]
+    assert flops <= WHOLE_FLOPS[shape] / 8
+    useful = rec["roofline"]["useful_compute_ratio"]
+    assert useful * flops == pytest.approx(
+        rec["roofline"]["model_flops"] / rec["n_devices"])
+    assert rec["memory"]["state_bytes"] == STATE_BYTES[shape]
+
+
 def test_summarize_prints_the_references_table(records, capsys):
     out, recs = records
     assert summarize.table(recs) == jsum.table(recs)
@@ -48,9 +75,9 @@ def test_summarize_prints_the_references_table(records, capsys):
     picks = summarize.pick_hillclimb(recs)
     assert picks == jsum.pick_hillclimb(recs)
     assert {picks["worst_roofline"], picks["most_collective"]} <= {
-        f"{a}/decode_32k" for a in ARCHS}
+        f"{a}/{s}" for a, s in CELLS}
     summarize.main(["--dir", str(out)])
-    assert "3 cells" in capsys.readouterr().out
+    assert "4 cells" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("kind,hlo_kind", [
