@@ -36,7 +36,10 @@ Phases, each fatal on failure:
              two sampled seeds are held against the numpy ``simulate_scalar``
              oracle at rtol 1e-6, and the engine is rerun on the same
              tensors and must repeat every metric bit for bit; one more run
-             under torch.profiler gives device time by kernel.
+             under torch.profiler gives device time by kernel. It runs
+             before phase 2, whose checks take the engine inputs the sweep
+             lowered (the host lowers the 128 seeds once). Every phase's
+             seconds, and the script's so far, go to stdout and stderr.
 4. small   — a small faulted run twice on the card: bit-identical, and equal
              to ``simulate_scalar`` per seed at rtol 1e-6.
 5. serve   — the second path: granite-moe-1b-a400m at full width (24
@@ -44,7 +47,7 @@ Phases, each fatal on failure:
              ``LM.init`` with a CUDA generator seeded 0) served through
              ``repro_torch.launch.serve.serve``: 2 replicas on one
              ReplicaScheduler, 8 slots each, max_len 4096, 32 requests with
-             prompt lengths uniform in 256..2048, 64 new tokens each, greedy.
+             prompt lengths uniform in 256..2048, 16 new tokens each, greedy.
              The launch counters are zeroed just before and read just after
              and must equal 24 flash launches per prefill call, every one on
              the tensor cores, and 24 dispatch-positions launches (one per
@@ -68,7 +71,7 @@ Phases, each fatal on failure:
              state, weights from ``LM.init`` with a CUDA generator seeded 0)
              served through ``repro_torch.launch.serve.serve``: 2 replicas, 4
              slots each, max_len 4096, 16 requests with prompt lengths
-             uniform in 256..2048, 32 new tokens each, greedy. Launch
+             uniform in 256..2048, 8 new tokens each, greedy. Launch
              counters zeroed just before and read just after: 64 scan
              launches per prefill call, none per decode step, none of the
              other kernels; a second run repeats every token; peak memory
@@ -85,8 +88,8 @@ Phases, each fatal on failure:
              float32 kernel).
 11. events — the host event engine beside the batched one on the card: a
              1,024-node cluster (powers 1..10) at 60% offered Poisson load,
-             work mean 6, horizon 50, PSTS (floor 0.1, trigger period 1),
-             about 29,000 tasks a seed. ``lab.sweep`` with backend "auto"
+             work mean 6, horizon 12.5, PSTS (floor 0.1, trigger period
+             1), about 7,200 tasks a seed. ``lab.sweep`` with backend "auto"
              must send seeds 0-1 to ``events`` and seeds 0-7 to ``batched``
              (on the card); for seeds 0 and 1 both backends realize the same
              arrivals, and on events every task completes, with migrations
@@ -100,13 +103,13 @@ Phases, each fatal on failure:
              checked (the fluid timeline ends at the horizon).
 12. traces, federations, DAGs — the seventh slice's paths:
     a. trace-12.5k, on the card: ``lab.sweep`` (backend "auto") of seeds
-       0-15 over the bundled Google excerpt parsed with
+       0-7 over the bundled Google excerpt parsed with
        eviction_mode="end" and rate-scaled 966x (``TraceRef(scale=966)``,
-       ~1.64 M tasks a seed in the first 400 s) on the 12,500-node cluster,
+       ~0.8 M tasks a seed in the first 200 s) on the 12,500-node cluster,
        PSTS with fifo_dispatch. It must run on ``batched``, flag the
        trace's priorities and eviction outcomes as ignored, launch the scan
        and dispatch kernels (counters zeroed just before, read just
-       after); seeds 0 and 15 equal ``simulate_scalar`` at rtol 1e-6, and
+       after); seeds 0 and 7 equal ``simulate_scalar`` at rtol 1e-6, and
        the engine rerun on the same tensors repeats every metric bit for
        bit. Host seconds (scaling and lowering) and engine seconds, peak
        memory and trigger fires per seed are printed.
@@ -122,7 +125,7 @@ Phases, each fatal on failure:
        (counters show the scan and dispatch kernels), its members equal a
        batched ``lab.sweep`` of the same 8 scenarios and its aggregate
        arrivals and completions their sums; then the geo-federation
-       preset's shape at 4 x 256 nodes, horizon 50 (member 0 at 120%
+       preset's shape at 4 x 256 nodes, horizon 25 (member 0 at 120%
        offered load, the others at 30%) on the host event model: every
        task completes, WAN migrations happen, the mean response beats the
        same members isolated, and a rerun is equal to the byte.
@@ -214,7 +217,8 @@ Phases, each fatal on failure:
        and peak memory of both runs.
     b. ``python -m repro_torch.launch.dryrun --arch granite-moe-1b-a400m
        --shape train_4k --mesh single`` (a fake world of 256 ranks, the LM
-       on meta) into build/chip_smoke_dryrun/, then ``python -m
+       on meta; run on the host from phase 2 on, a CPU-only child) into
+       build/chip_smoke_dryrun/, then ``python -m
        repro_torch.launch.summarize`` over it: the record parses and its
        state bytes a rank equal the sharding plan's arithmetic for the
        16 x 16 mesh (``plan_state_bytes``).
@@ -239,8 +243,8 @@ Phases, each fatal on failure:
        time). The ranks' logs stay under build/chip_smoke_tp/ when the
        phase fails.
 16. prefill and decode split over ``model``: granite-moe-1b-a400m at full
-    width and depth in bf16 served unsharded on the card (8 of
-    granite-serve's prompts into caches of 4,096 positions, 64 greedy
+    width cut to 6 layers in bf16 served unsharded on the card (8 of
+    granite-serve's prompts into caches of 4,096 positions, 32 greedy
     decode steps: its tokens, logits and MoE routing the reference), then
     two child processes (``chip_smoke.py --split-child RANK PORT OUT SMI
     REF``), one gloo rank each, share the card on the (1, 2) ("data",
@@ -249,19 +253,43 @@ Phases, each fatal on failure:
     of the KV sequence, its SSM channels): (a) granite and falcon-mamba-7b
     at full width cut to 2 layers in float32 (the KV cache too), prompts
     of 137, 503, 712 and 900 tokens into caches of 1,024 (rank 1's block
-    past two of them, one crossing the edge in decode), 16 decode steps
+    past two of them, one crossing the edge in decode), 10 decode steps
     fed the unsharded LM's greedy tokens on the CPU (the plain versions):
     every call's logits within 1e-4 x max|logit|, the greedy tokens equal,
     the cache gathered from the ranks within 1e-4 x its max on the rows
     written, the launches counted; (b) granite in bf16 fed the reference's
     tokens: the logits' distance, the greedy agreement and the top-k
     choices that turned, reported; on the reference's routing replayed,
-    every call's logits within 5e-2 x max|logit| of the reference's; 24
-    flash forwards (all on the tensor cores) and 24 positions launches a
-    prefill, 24 positions a decode step; prefill tokens/s, decode ms a
-    step and peak memory a rank beside the unsharded run's, and gloo's
-    host time in a profiled decode step. The ranks' logs stay under
+    every call's logits within 5e-2 x max|logit| of the reference's; a
+    flash forward (on the tensor cores) and a positions launch a layer a
+    prefill, a positions launch a layer a decode step; prefill tokens/s,
+    decode ms a step and peak memory a rank beside the unsharded run's,
+    and gloo's host time in a profiled decode step. The ranks' logs stay under
     build/chip_smoke_split/ when the phase fails.
+17. expert parallelism over ``expert``: two child processes
+    (``chip_smoke.py --ep-child RANK PORT OUT SMI LOSSES``), one gloo rank
+    each, share the card on the (2, 1, 1) ("expert", "data", "model")
+    mesh, each rank holding and running 16 of granite's 32 experts, the
+    slot tensors moved by all-to-alls: (a) ``models.distributed.
+    all_to_all`` on CUDA tensors, float32 and bf16, at a decode step's and
+    a train step's slot tensor: forward and backward equal to the blocks
+    sent, bit for bit, and timed; (b) granite-moe-1b-a400m at full width
+    cut to 2 layers in float32: one loss and its gradients on 2 x 512
+    tokens, a row a rank, against the unsharded LM's on the CPU (phase
+    14d's bounds; its collectives recorded: six all-to-alls over
+    ``expert`` a layer, no all-gather there), and a prefill of 2 prompts,
+    a prompt a rank, and 8 decode steps (phase 6's bound on every call's
+    logits, the greedy tokens equal); (c) granite at full width and depth
+    in bf16, 14b's data, half a step's rows a rank, 3 steps on 15a's
+    routing replayed (recorded by its mesh child): each step's loss and
+    gradient norm within 15c(c)'s bounds of 15a's, 14b's launches a step
+    a rank, step time, tokens/s, peak and a profiled loss and gradients
+    beside 15c(c)'s; the routing turns that its own top-k would have made
+    are counted. The dry run of granite's train_4k cell cut to 2 layers
+    on ``make_production_mesh(ep=4)`` (run on the host from phase 2 on):
+    its state bytes the plan's, twelve all-to-alls over ``expert`` of the
+    slot tensor's bytes, no all-gather there. The ranks' logs stay under
+    build/chip_smoke_ep/ when the phase fails.
 
 The line before the last is the card's name and power limit from
 nvidia-smi, the one before it the kernels' JSON record; the last line is the
@@ -270,6 +298,7 @@ JSON result. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -286,6 +315,7 @@ import urllib.request
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -339,14 +369,14 @@ SERVE_REQUESTS = 32
 SERVE_REPLICAS = 2
 SERVE_SLOTS = 8
 SERVE_MAX_LEN = 4096
-SERVE_NEW = 64
+SERVE_NEW = 16          # was 64: cut to keep the script within its time limit
 PROMPT_LO, PROMPT_HI = 256, 2048
 # the third path: falcon-mamba-7b at full width
 SSM_ARCH = "falcon-mamba-7b"
 HYBRID_ARCH = "jamba-v0.1-52b"
 SSM_REQUESTS = 16
 SSM_SLOTS = 4
-SSM_NEW = 32
+SSM_NEW = 8             # was 32: cut to keep the script within its time limit
 SSM_DECODE_STEPS = 4    # falcon-vs-plain
 SCAN_TOL = 1e-4         # the JAX package's mamba_scan tolerance
 MEMORY_LIMIT = 80e9
@@ -360,7 +390,7 @@ LOGIT_TOL = 1e-4        # x max|logit|, card vs CPU (phase 6)
 # the event engine (phase 11): the sweep cell's shape at the largest cluster
 # the per-task host engine covers within the time limit
 EV_NODES = 1024
-EV_HORIZON = 50.0
+EV_HORIZON = 12.5       # was 50: cut to keep the script within its time limit
 EV_LOAD = 0.6
 EV_WORK_MEAN = 6.0
 EV_SMALL_SEEDS = 2      # below BATCH_THRESHOLD: auto picks events
@@ -373,9 +403,9 @@ TRACE_MACHINES = TRACE_DATA / "google_excerpt_10k_machine_events.csv.gz"
 # 966x the excerpt's 42.72 work units/s offers 60% of the 12,500-node
 # cluster's 68,800 over the whole trace
 TRACE_SCALE = 966.0
-TRACE_HORIZON = 400.0
-TRACE_SEEDS = 16
-TRACE_SAMPLED = (0, 15)
+TRACE_HORIZON = 200.0   # was 400: cut to keep the script within its time limit
+TRACE_SEEDS = 8         # was 16: cut to keep the script within its time limit
+TRACE_SAMPLED = (0, 7)
 TRACE_IGNORED = ("workload trace priorities",
                  "workload trace eviction outcomes (ends_evicted)")
 # examples/trace_replay.py's cluster: 4 machine classes x 4 nodes
@@ -384,7 +414,7 @@ REPLAY_ATTRS = {"machine_class": (0.0,) * 4 + (1.0,) * 4 + (2.0,) * 4
                 + (3.0,) * 4}
 FED_MEMBERS = 8
 GEO_NODES = 256
-GEO_HORIZON = 50.0
+GEO_HORIZON = 25.0      # was 50: cut to keep the script within its time limit
 GEO_LOADS = (1.2, 0.3, 0.3, 0.3)
 DAG_NODES = 256
 CLI_SEEDS = 8           # the batch threshold: the CLI sweep goes to batched
@@ -408,6 +438,21 @@ FP32_OPS_PER_S = 67e12  # non-tensor float32 (the scan's fma)
 
 def log(*args):
     print(*args, flush=True)
+
+
+T_START = time.perf_counter()   # main() sets it after its first checks
+
+
+def mark(phase: str, since: float) -> float:
+    """Log the seconds since ``since`` and since the script's start for
+    ``phase``, on stdout and on stderr (where a run stopped at its time
+    limit shows how far it got); returns the time now."""
+    now = time.perf_counter()
+    line = (f"[phase {phase}] {now - since:.1f}s ({now - T_START:.1f}s "
+            f"since the start)")
+    log(line)
+    print(line, file=sys.stderr, flush=True)
+    return now
 
 
 def fail(msg: str):
@@ -658,19 +703,39 @@ def phase_kernels(dev, slot, works, cfg):
     return [scan, disp]
 
 
-def phase_sweep(base, cfg, powers, scale):
-    """The main path, driven through the lab entry point."""
+def phase_sweep(base):
+    """The main path, driven through the lab entry point. The engine's
+    inputs, as the sweep lowered them, are kept (by wrapping the batched
+    backend's ``simulate_batch``) for phase 2's kernel checks and the
+    rerun, so that the host lowers the 128 seeds once. Returns (results,
+    launches, (slot, works, powers, cfg, power_scale))."""
+    calls = []
+    engine = lab_backends.simulate_batch
+
+    def kept(slot, works, powers, cfg, power_scale=None, *, device=None):
+        calls.append((slot, works, powers, cfg, power_scale))
+        return engine(slot, works, powers, cfg, power_scale=power_scale,
+                      device=device)
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    results = lab.sweep(base=base, grid={"seed": range(SEEDS)},
-                        fifo_dispatch=True)
-    wall = time.perf_counter() - t0
+    lab_backends.simulate_batch = kept
+    try:
+        t0 = time.perf_counter()
+        results = lab.sweep(base=base, grid={"seed": range(SEEDS)},
+                            fifo_dispatch=True)
+        wall = time.perf_counter() - t0
+    finally:
+        lab_backends.simulate_batch = engine
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    if len(calls) != 1:
+        fail(f"sweep: {len(calls)} engine calls, expected one batched call")
+    slot, works, powers, cfg, scale = calls[0]
     log(f"[sweep] {SEEDS} seeds x {N_NODES} nodes x {cfg.n_slots} slots: "
         f"wall {wall:.2f}s (workload generation included), peak device "
-        f"memory {peak / 2**30:.2f} GiB, launches {launches}")
+        f"memory {peak / 2**30:.2f} GiB, launches {launches}; slot/works "
+        f"{slot.shape}, sum(powers)={powers.sum():.0f}")
     if [r.backend for r in results] != ["batched"] * SEEDS:
         fail("the sweep did not auto-dispatch to the batched backend")
     # the serving and sweep paths launch no backward kernel
@@ -706,7 +771,7 @@ def phase_sweep(base, cfg, powers, scale):
         log(f"[sweep] seed {s} matches simulate_scalar at rtol 1e-6 "
             f"({time.perf_counter() - t0:.1f}s): "
             + ", ".join(f"{k}={got[k]!r}/{sm[k]!r}" for k in FIELDS))
-    return results, launches
+    return results, launches, calls[0]
 
 
 def phase_repeat(results, tensors, cfg):
@@ -732,10 +797,11 @@ def device_time_table(fn, wall_s: float, tag: str, watch=()) -> None:
     its share of ``wall_s``, the same work's unprofiled wall time, and the
     kernels whose names hold a string of ``watch`` wherever they rank.
     Returns the device's busy share of ``wall_s`` (None without device
-    time)."""
+    time). Only the device is traced: the kernels' times are the same
+    with the host's ops traced too, and reading those costs ~3x the time
+    (the engine's 94,000 launches: 67 s against 21 s on an H100 host)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []
@@ -1712,7 +1778,7 @@ def phase_trace_sweep(dev, smi: str):
     lab_backends.simulate_batch = timed
     try:
         with warnings.catch_warnings():
-            # the horizon keeps the first 400 s of the scaled trace on
+            # the horizon keeps the first 200 s of the scaled trace on
             # purpose; the lab warns of every task it drops
             warnings.filterwarnings("ignore",
                                     message=".*arrive at/after horizon")
@@ -2716,6 +2782,9 @@ TP_GNORM_RTOL = 3e-2
 TP_TIMEOUT = 420
 TP_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
 MESH_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh.json"
+# 15a's mesh run's MoE routing, which 17(c) replays
+MESH_ROUTES = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_mesh_routes.pt"
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
 
 
@@ -2739,7 +2808,8 @@ def mesh_child(side: str, out: str, smi: str) -> int:
     as ``launch.train`` trains, its LM built on meta
     (``materialize=False``) and drawn one leaf at a time. Writes the
     losses, the launches a step, the memory before and at the peak and
-    every parameter's sha256 to ``out`` as JSON."""
+    every parameter's sha256 to ``out`` as JSON; the mesh side also its
+    MoE routing (``compact_routes``) to MESH_ROUTES, for 17(c)."""
     import socket
 
     import torch.distributed as dist
@@ -2784,11 +2854,15 @@ def mesh_child(side: str, out: str, smi: str) -> int:
                                                                     mesh)))
         torch.cuda.synchronize()
         res["before_bytes"] = torch.cuda.memory_allocated()
-        result = run_train(f"mesh-{side}", cfg, dev, smi,
-                           shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
-                           steps=MESH_STEPS, expected=expected,
-                           materialize=side == "plain")
+        with compact_routes() as routes:
+            result = run_train(f"mesh-{side}", cfg, dev, smi,
+                               shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
+                               steps=MESH_STEPS, expected=expected,
+                               materialize=side == "plain")
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if side == "mesh":
+            torch.save([[t.cpu() for t in r] for r in routes], MESH_ROUTES)
+        del routes
         lm, hist, per_step = result[0], result[4], result[5]
         res["losses"] = [row["loss"] for row in hist]
         res["grad_norms"] = [row["grad_norm"] for row in hist]
@@ -2802,18 +2876,17 @@ def mesh_child(side: str, out: str, smi: str) -> int:
     return 0
 
 
-def plan_state_bytes(cfg, mesh_shape=(16, 16)) -> int:
-    """The bytes of the train state a rank of the (data, model) mesh holds
+def plan_state_bytes(cfg, mesh_shape=(16, 16), axes=("data", "model")
+                     ) -> int:
+    """The bytes of the train state a rank of the ``axes`` mesh holds
     under the sharding plans: each leaf of the parameters and both AdamW
     moments with every dim divided by its axes' sizes, and the step."""
-    from types import SimpleNamespace
-
     from repro_torch.launch.shardings import state_pspecs
     from repro_torch.models.common import param_tree
     from repro_torch.optim.adamw import AdamWState, tree_items
     from repro_torch.train.state import TrainState
 
-    mesh = SimpleNamespace(axis_names=("data", "model"),
+    mesh = SimpleNamespace(axis_names=tuple(axes),
                            devices=np.empty(mesh_shape, dtype=object))
     sizes = dict(zip(mesh.axis_names, mesh_shape))
     params = param_tree(LM(cfg, device="meta"))
@@ -2836,18 +2909,16 @@ def plan_state_bytes(cfg, mesh_shape=(16, 16)) -> int:
     return total
 
 
-def phase_mesh(smi: str):
+def phase_mesh(smi: str, dryrun):
     """Phase 15; returns 15a's launches of each kernel over its sharded
-    run and 15c's over its split runs. 15b runs on the host meanwhile (a
-    CPU-only child: the fake world), so that the phase stays within its
-    time."""
-    t15 = time.perf_counter()
-    dryrun = start_dryrun()
+    run, 15c's over its split runs, 15a's losses and gradient norms and
+    15c(c)'s step time, peak and profile on rank 0. 15b has run on the
+    host since phase 2 (``dryrun``: ``start_dryrun``'s CPU-only child, the
+    fake world), so that the phase stays within its time."""
     launches, mesh_run = phase_mesh_train(smi)
-    tp = phase_tp(smi, mesh_run)
+    tp, tp_run = phase_tp(smi, mesh_run)
     phase_dryrun(*dryrun)
-    log(f"[phase 15] {time.perf_counter() - t15:.1f}s")
-    return launches, tp
+    return launches, tp, mesh_run, tp_run
 
 
 def _mesh_side(side: str, smi: str) -> dict:
@@ -2959,21 +3030,45 @@ def plain_scan_pair():
         ops.mamba_scan = real
 
 
-def tp_grads(tag, cfg, mesh, dev, rank, expected):
-    """15c(a), (b): ``cfg``'s loss and gradients (float32, remat on) with
-    the compute split over the (1, 2) mesh's ``model`` axis, the kernels
-    on the rank's heads and channels, against the unsharded LM's on the
-    CPU (rank 0), which runs their plain versions (the scan's forward and
-    backward as a pair, ``_PlainScan``), from the same weights
-    (a CUDA generator seeded 0, drawn one leaf at a time into the shards)
-    and batch: the loss within LOSS_RTOL relative, every gradient,
-    gathered from the ranks, within GRAD_TOL x its leaf's max|g| (phase
-    14d's bounds). A batch whose
-    top-k flips at a near tie between the two runs is reported and the
-    next one tried (rank 0 decides, the ranks agree by a broadcast). The
-    split run's launches must equal ``expected``. Returns the record."""
+def whole_routes(calls, batch):
+    """Every rank's MoE dispatches (``(logits, DispatchResult)`` in call
+    order, its rows) gathered in the batch's row order, each call's
+    logits and ``ROUTE_FIELDS`` on the host (ranks that hold the same rows
+    give them once): the whole batch's routing, as an unsharded run makes
+    it (a collective)."""
     import torch.distributed as dist
 
+    mine = [(lg.cpu(), {f: getattr(r, f).cpu() for f in ROUTE_FIELDS})
+            for lg, r in calls]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (batch.index, mine))
+    blocks = [recs for _, recs in sorted(dict(every).items())]
+    return [(torch.cat([b[j][0] for b in blocks]),
+             SimpleNamespace(**{f: torch.cat([b[j][1][f] for b in blocks])
+                                for f in ROUTE_FIELDS}))
+            for j in range(len(blocks[0]))]
+
+
+def tp_grads(tag, cfg, mesh, dev, rank, expected, watch=False):
+    """15c(a), (b) and 17(b): ``cfg``'s loss and gradients (float32, remat
+    on) with the compute split over the mesh (15c: the (1, 2) mesh's
+    ``model`` axis, the kernels on the rank's heads and channels; 17: the
+    (2, 1, 1) mesh's ``expert`` axis, each rank its row and its experts),
+    against the unsharded LM's on the CPU (rank 0), which runs their plain
+    versions (the scan's forward and backward as a pair, ``_PlainScan``),
+    from the same weights (a CUDA generator seeded 0, drawn one leaf at a
+    time into the shards) and batch: the loss (every rank's share summed)
+    within LOSS_RTOL relative, every gradient, gathered from the ranks,
+    within GRAD_TOL x its leaf's max|g| (phase 14d's bounds). A batch
+    whose top-k flips at a near tie between the two runs (every rank's
+    routing gathered) is reported and the next one tried (rank 0 decides,
+    the ranks agree by a broadcast). The split run's launches must equal
+    ``expected``. With ``watch`` the split run's collectives are recorded
+    (``launch.dryrun.Recorder``: kind, mesh dim, shape). Returns the
+    record."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import Recorder, mesh_groups
     from repro_torch.launch.shardings import activation_rules
     from repro_torch.models.distributed import gather_full
     from repro_torch.optim import constant
@@ -3011,10 +3106,17 @@ def tp_grads(tag, cfg, mesh, dev, rank, expected):
             ops.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with kernel_shapes() as shapes:
+            recorder = Recorder(mesh_groups(mesh)) if watch else \
+                contextlib.nullcontext()
+            with kernel_shapes() as shapes, recorder:
                 loss, _, grads = step.loss_grads(state.params, batch)
             torch.cuda.synchronize()
             rec["split_s"] = time.perf_counter() - t0
+            if watch:
+                rec["collectives"] = [
+                    (c["kind"], c["axis"], c["shape"], c["bytes"])
+                    for c in recorder.collectives]
+            loss = sharding.batch.sum_(loss.detach().clone())
             counts = ops.launch_counts()
             want = {name: expected.get(name, 0) for name in counts}
             if counts != want:
@@ -3023,9 +3125,9 @@ def tp_grads(tag, cfg, mesh, dev, rank, expected):
             whole = {".".join(p): gather_full(g, mesh, sharding.param[p])
                      for p, g in tree_items(grads)}
             again = torch.zeros((), device=dev)
+            on_split = whole_routes(calls, sharding.batch)
+            calls.clear()
             if rank == 0:
-                on_split = list(calls)
-                calls.clear()
                 t_ref = time.perf_counter()
                 with plain_scan_pair():
                     lh, gh = loss_grads(ref, batch)
@@ -3041,8 +3143,7 @@ def tp_grads(tag, cfg, mesh, dev, rank, expected):
                         f"unsharded run; the next batch")
                     again.fill_(1.0)
                 del gh
-            dist.broadcast(again, src=dist.get_global_rank(
-                mesh.get_group("model"), 0), group=mesh.get_group("model"))
+            dist.broadcast(again, src=0)
             del whole, grads
             if not again.item():
                 break
@@ -3051,7 +3152,10 @@ def tp_grads(tag, cfg, mesh, dev, rank, expected):
     finally:
         moe_mod.dispatch_grouped = plain_dispatch
     rec["attempts"] = attempt + 1
-    log(f"[tp-{rank}] {tag}: split loss and gradients {rec['split_s']:.2f}s"
+    rec["experts_local"] = len(lm.stages[0].ffn.moe.wi.to_local()) \
+        if cfg.n_experts else 0
+    log(f"[{tag.split('-')[0]}-{rank}] {tag}: split loss and gradients "
+        f"{rec['split_s']:.2f}s"
         f", the unsharded on the CPU {rec.get('plain_s', 0.0):.2f}s, "
         f"{time.perf_counter() - t_case:.1f}s for the case")
     rec["local_bytes"] = sum(p.to_local().numel() * p.to_local().element_size()
@@ -3064,12 +3168,42 @@ def tp_grads(tag, cfg, mesh, dev, rank, expected):
     return rec
 
 
-def tp_profile(lm, pipe, dev) -> dict:
-    """One more loss and gradients of 15c(c)'s split LM (the step without
-    its update) under torch.profiler: the wall, the host time inside gloo's
-    collectives (``gloo:`` events) and the device's busy time, in ms."""
+def gloo_profile(fn) -> dict:
+    """``fn()`` (which ends synchronised) under torch.profiler: the wall,
+    the host time inside gloo's collectives (``gloo:`` events), in all
+    and by kind (calls, ms), and the device's busy time, in ms."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    gloo = [e for e in events if e.key.startswith("gloo:")]
+    by_kind = {}        # key_averages may give a kind more than one entry
+    for e in gloo:
+        n, ms = by_kind.get(e.key, (0, 0.0))
+        by_kind[e.key] = (n + e.count, ms + e.cpu_time_total / 1e3)
+    return {"wall_ms": wall * 1e3,
+            "gloo_ms": sum(e.cpu_time_total for e in gloo) / 1e3,
+            "gloo_calls": sum(e.count for e in gloo),
+            "gloo_by_kind": by_kind,
+            "busy_ms": sum(getattr(e, "self_device_time_total", 0.0)
+                           for e in events if e.device_type
+                           == torch.autograd.DeviceType.CUDA) / 1e3}
+
+
+def gloo_kinds(prof: dict) -> str:
+    """A profile's gloo host time by kind: "kind ms in calls", ..."""
+    return ", ".join(f"{k[5:]} {ms:.1f} ms in {n}" for k, (n, ms) in
+                     sorted(prof["gloo_by_kind"].items()))
+
+
+def tp_profile(lm, pipe, dev) -> dict:
+    """One more loss and gradients of 15c(c)'s or 17(c)'s split LM (the
+    step without its update), profiled (``gloo_profile``)."""
     batch = {k: lm.batch.rows(torch.as_tensor(v, device=dev))
              for k, v in pipe.batch(MESH_STEPS)[0].items()}
     params = list(lm.parameters())
@@ -3078,111 +3212,97 @@ def tp_profile(lm, pipe, dev) -> dict:
         loss, _ = lm.loss(batch, remat=True)
         torch.autograd.grad(loss, params, allow_unused=True)
         torch.cuda.synchronize()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    gloo = [e for e in events if e.key.startswith("gloo:")]
-    return {"wall_ms": wall * 1e3,
-            "gloo_ms": sum(e.cpu_time_total for e in gloo) / 1e3,
-            "gloo_calls": sum(e.count for e in gloo),
-            "gloo_kinds": sorted({e.key for e in gloo}),
-            "busy_ms": sum(getattr(e, "self_device_time_total", 0.0)
-                           for e in events if e.device_type
-                           == torch.autograd.DeviceType.CUDA) / 1e3}
+    return gloo_profile(run)
 
 
-def tp_child(rank: int, port: int, out: str, smi: str, want: str) -> int:
-    """15c, rank ``rank`` of two processes sharing the card: a gloo world
-    (tcp://localhost at ``port``) and the (1, 2) ("data", "model") mesh on
-    it, then (a) granite at full width cut to 2 layers and (b) falcon-
-    mamba-7b at full width cut to 2 layers, float32, against the
-    unsharded LM (``tp_grads``), and (c) granite at full width and depth
-    in bf16 trained MESH_STEPS steps through ``run_train`` under
-    ``set_mesh`` and the mesh's activation rules, as ``launch.train``
-    trains, its LM built on meta and drawn one leaf at a time: each step's
-    launches 14b's, its loss within TP_LOSS_RTOL and its gradient norm
-    within TP_GNORM_RTOL relative of ``want``'s (15a's (1, 1) run, JSON).
-    Writes its record to ``out`` as JSON. On an error it prints it and
-    leaves at once, without the group's teardown, which would wait on the
-    other rank; a rank still running after TP_TIMEOUT less 30 s prints
-    every thread's stack."""
+def split_train(tag: str, mesh, dev, smi: str, rank: int, want: dict,
+                routes=None) -> dict:
+    """15c(c) and 17(c): granite at full width and depth in bf16 trained
+    MESH_STEPS steps through ``run_train`` under ``set_mesh`` and the
+    mesh's activation rules, as ``launch.train`` trains, its LM built on
+    meta and drawn one leaf at a time: each step's launches 14b's, its
+    loss within TP_LOSS_RTOL and its gradient norm within TP_GNORM_RTOL
+    relative of ``want``'s (15a's (1, 1) run); with ``routes`` (15a's
+    routing, ``compact_routes``) on that run's routing of the rank's rows
+    (``replayed_routes``); then one loss and its gradients profiled
+    (``tp_profile``). Returns the record."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.launch.shardings import activation_rules
+    from repro_torch.models.common import logical_axis_rules
+    from repro_torch.models.distributed import BatchGroup
+
+    cfg = get_config(ARCH)
+    n = cfg.n_layers
+    expected = {"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
+                "flash_attention_bwd": n, "flash_attention_bwd_tc": n,
+                "dispatch_positions": 2 * n}
+    rules = activation_rules(cfg, mesh)
+    batch = BatchGroup(mesh, rules["batch"])
+    n_rows = TRAIN_SHARDS * TRAIN_ROWS // batch.ranks
+    replay = (replayed_routes(routes, slice(batch.index * n_rows,
+                                            (batch.index + 1) * n_rows))
+              if routes is not None else contextlib.nullcontext([]))
+    with set_mesh(mesh), logical_axis_rules(rules):
+        with kernel_shapes() as shapes, replay as turned:
+            result = run_train(f"{tag}-{rank}", cfg, dev, smi,
+                               shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
+                               steps=MESH_STEPS, expected=expected,
+                               materialize=False)
+        lm, pipe, hist, per_step = (result[0], result[3], result[4],
+                                    result[5])
+        profiled = tp_profile(lm, pipe, dev)
+    losses = [row["loss"] for row in hist]
+    norms = [row["grad_norm"] for row in hist]
+    for got, ref, tol in ((losses, want["losses"], TP_LOSS_RTOL),
+                          (norms, want["grad_norms"], TP_GNORM_RTOL)):
+        if len(got) != len(ref) or not all(
+                abs(a - b) <= tol * abs(b) for a, b in zip(got, ref)):
+            fail(f"{tag}-{rank}: {got} against the (1, 1) run's {ref} "
+                 f"(bound {tol} relative)")
+    return {"losses": losses, "grad_norms": norms, "counts": per_step,
+            "turned": turned, "dts": [row["dt"] for row in hist],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "shapes": shapes, "profile": profiled,
+            "split": lm.split.flags(),
+            "wq_local": list(lm.stages[0].attn.wq.w.to_local().shape),
+            "experts_local": len(lm.stages[0].ffn.moe.wi.to_local()),
+            "local_bytes": sum(p.to_local().numel()
+                               * p.to_local().element_size()
+                               for p in lm.parameters())}
+
+
+def gloo_child(tag: str, rank: int, port: int, out: str, timeout: float,
+               shape, axes, body) -> int:
+    """Rank ``rank`` of TP_RANKS processes sharing the card: a gloo world
+    (tcp://localhost at ``port``) and the ``shape`` mesh of ``axes`` on it
+    (``init_device_mesh`` on the card), then ``body(mesh, dev, rank)``,
+    whose record it writes to ``out`` as JSON with the backend, the mesh
+    and the world's set-up time. On an error it prints it and leaves at
+    once, without the group's teardown, which would wait on the other
+    ranks; a rank still running after ``timeout`` less 30 s prints every
+    thread's stack."""
     import faulthandler
     import traceback
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.launch.mesh import set_mesh
-    from repro_torch.launch.shardings import activation_rules
-    from repro_torch.models.common import logical_axis_rules
-
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    faulthandler.dump_traceback_later(TP_TIMEOUT - 30, exit=False)
+    faulthandler.dump_traceback_later(timeout - 30, exit=False)
     t0 = time.perf_counter()
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=TP_RANKS, rank=rank)
     try:
         res = {"rank": rank, "backend": dist.get_backend(),
                "init_s": time.perf_counter() - t0}
-        mesh = init_device_mesh("cuda", (1, TP_RANKS),
-                                mesh_dim_names=("data", "model"))
+        mesh = init_device_mesh("cuda", tuple(shape), mesh_dim_names=axes)
         res["mesh_shape"] = [list(mesh.shape), list(mesh.mesh_dim_names)]
-        n = GRAD_LAYERS
-        granite = dataclasses.replace(get_config(ARCH), n_layers=n,
-                                      dtype="float32")
-        res["a"] = tp_grads("tp-granite-grads", granite, mesh, dev, rank,
-                            {"flash_attention": 2 * n,
-                             "flash_attention_bwd": n,
-                             "dispatch_positions": 2 * n})
-        falcon = dataclasses.replace(get_config(SSM_ARCH), n_layers=n,
-                                     dtype="float32")
-        res["b"] = tp_grads("tp-falcon-grads", falcon, mesh, dev, rank,
-                            {"mamba_scan": 2 * n, "mamba_scan_bwd": n})
-        cfg = get_config(ARCH)
-        n = cfg.n_layers
-        expected = {"flash_attention": 2 * n, "flash_attention_tc": 2 * n,
-                    "flash_attention_bwd": n, "flash_attention_bwd_tc": n,
-                    "dispatch_positions": 2 * n}
-        with set_mesh(mesh), logical_axis_rules(activation_rules(cfg,
-                                                                 mesh)):
-            with kernel_shapes() as shapes:
-                result = run_train(f"tp-{rank}", cfg, dev, smi,
-                                   shards=TRAIN_SHARDS, rows=TRAIN_ROWS,
-                                   steps=MESH_STEPS, expected=expected,
-                                   materialize=False)
-            lm, pipe, hist, per_step = (result[0], result[3], result[4],
-                                        result[5])
-            profiled = tp_profile(lm, pipe, dev)
-        losses = [row["loss"] for row in hist]
-        norms = [row["grad_norm"] for row in hist]
-        want = json.loads(want)
-        for got, ref, tol in ((losses, want["losses"], TP_LOSS_RTOL),
-                              (norms, want["grad_norms"], TP_GNORM_RTOL)):
-            if len(got) != len(ref) or not all(
-                    abs(a - b) <= tol * abs(b) for a, b in zip(got, ref)):
-                fail(f"tp-{rank}: {got} against the (1, 1) run's {ref} "
-                     f"(bound {tol} relative)")
-        res["c"] = {"losses": losses, "grad_norms": norms,
-                    "counts": per_step,
-                    "dts": [row["dt"] for row in hist],
-                    "peak_bytes": torch.cuda.max_memory_allocated(),
-                    "shapes": shapes, "profile": profiled,
-                    "split": lm.split.flags(),
-                    "wq_local": list(
-                        lm.stages[0].attn.wq.w.to_local().shape),
-                    "experts_local": len(lm.stages[0].ffn.moe.wi.to_local()),
-                    "local_bytes": sum(
-                        p.to_local().numel() * p.to_local().element_size()
-                        for p in lm.parameters())}
+        res.update(body(mesh, dev, rank))
     except BaseException as exc:
-        log(f"[tp-{rank}] {type(exc).__name__}: {exc}")
+        log(f"[{tag}-{rank}] {type(exc).__name__}: {exc}")
         traceback.print_exc()
         sys.stderr.flush()
         os._exit(1)
@@ -3191,30 +3311,56 @@ def tp_child(rank: int, port: int, out: str, smi: str, want: str) -> int:
     return 0
 
 
-def phase_tp(smi: str, mesh_run: dict) -> dict:
-    """15c: two processes, one gloo rank each, share the card on the
-    (1, 2) mesh (``tp_child``); both must end within TP_TIMEOUT. Returns
-    the launches of each kernel over (c)'s run on rank 0, the scan's from
-    (b)."""
+def tp_child(rank: int, port: int, out: str, smi: str, want: str) -> int:
+    """15c, rank ``rank`` of two processes sharing the card on the (1, 2)
+    ("data", "model") mesh (``gloo_child``): (a) granite at full width cut
+    to 2 layers and (b) falcon-mamba-7b at full width cut to 2 layers,
+    float32, against the unsharded LM (``tp_grads``), and (c) granite at
+    full width and depth in bf16 (``split_train``) against ``want``'s
+    losses and gradient norms (15a's (1, 1) run, JSON)."""
+    def body(mesh, dev, rank):
+        n = GRAD_LAYERS
+        granite = dataclasses.replace(get_config(ARCH), n_layers=n,
+                                      dtype="float32")
+        falcon = dataclasses.replace(get_config(SSM_ARCH), n_layers=n,
+                                     dtype="float32")
+        return {"a": tp_grads("tp-granite-grads", granite, mesh, dev, rank,
+                              {"flash_attention": 2 * n,
+                               "flash_attention_bwd": n,
+                               "dispatch_positions": 2 * n}),
+                "b": tp_grads("tp-falcon-grads", falcon, mesh, dev, rank,
+                              {"mamba_scan": 2 * n, "mamba_scan_bwd": n}),
+                "c": split_train("tp", mesh, dev, smi, rank,
+                                 json.loads(want))}
+    return gloo_child("tp", rank, port, out, TP_TIMEOUT, (1, TP_RANKS),
+                      ("data", "model"), body)
+
+
+def card_ranks(tag: str, flag: str, out_dir: Path, timeout: float, *args):
+    """TP_RANKS child processes (``chip_smoke.py FLAG RANK PORT OUT
+    *ARGS``), one gloo rank each (tcp://localhost at a free port), share
+    the card; all must end within ``timeout``. Prints rank 0's lines
+    tagged ``[TAG-`` and the others' own; fails with both logs' ends
+    where a rank exits non-zero. Returns (each rank's JSON record, the
+    ranks' wall seconds)."""
     import socket
 
-    TP_OUT.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     t0 = time.perf_counter()
     procs, logs = [], []
     for rank in range(TP_RANKS):
-        (TP_OUT / f"rank{rank}.json").unlink(missing_ok=True)
-        logs.append(open(TP_OUT / f"rank{rank}.log", "w"))
+        (out_dir / f"rank{rank}.json").unlink(missing_ok=True)
+        logs.append(open(out_dir / f"rank{rank}.log", "w"))
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), TP_CHILD,
-             str(rank), str(port), str(TP_OUT / f"rank{rank}.json"), smi,
-             json.dumps(mesh_run)], stdout=logs[-1],
-            stderr=subprocess.STDOUT, text=True))
-    deadline = time.monotonic() + TP_TIMEOUT
+            [sys.executable, str(Path(__file__).resolve()), flag,
+             str(rank), str(port), str(out_dir / f"rank{rank}.json"), *args],
+            stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + timeout
     try:
-        # until both end, one fails (the other may wait on it) or the time
+        # until all end, one fails (the others may wait on it) or the time
         # is up
         while time.monotonic() < deadline and not all(
                 proc.poll() == 0 for proc in procs) and not any(
@@ -3228,19 +3374,26 @@ def phase_tp(smi: str, mesh_run: dict) -> dict:
         for f in logs:
             f.close()
     wall = time.perf_counter() - t0
-    texts = [(TP_OUT / f"rank{r}.log").read_text() for r in range(TP_RANKS)]
-    for line in texts[0].splitlines():
-        if line.startswith("[tp-"):
-            log(line)
-    for line in texts[1].splitlines():
-        if line.startswith("[tp-1]"):
-            log(line)
+    texts = [(out_dir / f"rank{r}.log").read_text() for r in range(TP_RANKS)]
+    for r, text in enumerate(texts):
+        for line in text.splitlines():
+            if line.startswith(f"[{tag}-" if r == 0 else f"[{tag}-{r}]"):
+                log(line)
     codes = [proc.returncode for proc in procs]
     if codes != [0] * TP_RANKS:
-        fail(f"tp: the ranks exited {codes} after {wall:.1f}s: "
+        fail(f"{tag}: the ranks exited {codes} after {wall:.1f}s: "
              f"{texts[0][-2500:]} || {texts[1][-2500:]}")
-    ranks = [json.loads((TP_OUT / f"rank{r}.json").read_text())
-             for r in range(TP_RANKS)]
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(TP_RANKS)], wall
+
+
+def phase_tp(smi: str, mesh_run: dict) -> dict:
+    """15c: two processes, one gloo rank each, share the card on the
+    (1, 2) mesh (``tp_child``); both must end within TP_TIMEOUT. Returns
+    the launches of each kernel over (c)'s run on rank 0, the scan's from
+    (b)."""
+    ranks, wall = card_ranks("tp", TP_CHILD, TP_OUT, TP_TIMEOUT, smi,
+                             json.dumps(mesh_run))
     r0 = ranks[0]
     if any(r["backend"] != "gloo" or r["mesh_shape"] != [
             [1, TP_RANKS], ["data", "model"]] for r in ranks):
@@ -3297,24 +3450,29 @@ def phase_tp(smi: str, mesh_run: dict) -> dict:
         log(f"[tp] rank {r}, one loss and gradients under torch.profiler: "
             f"{prof['wall_ms']:.1f} ms, of it {prof['gloo_ms']:.1f} ms of "
             f"host time in {prof['gloo_calls']} gloo collectives "
-            f"({', '.join(prof['gloo_kinds'])}), device busy "
+            f"({gloo_kinds(prof)}), device busy "
             f"{prof['busy_ms']:.1f} ms ({smi})")
     launches = {name: sum(s[name] for s in c[0]["counts"])
                 for name in c[0]["counts"][0]}
     launches["mamba_scan"] = r0["b"]["counts"]["mamba_scan"]
     launches["mamba_scan_bwd"] = r0["b"]["counts"]["mamba_scan_bwd"]
     shutil.rmtree(TP_OUT, ignore_errors=True)
-    return launches
+    return launches, {"mean_dt": c[0]["mean_dt"],
+                      "peak_bytes": c[0]["peak_bytes"],
+                      "profile": c[0]["profile"]}
 
 
 SPLIT_CHILD = "--split-child"  # 16: two gloo ranks serve on the (1, 2) mesh
 SPLIT_LENS = (137, 503, 712, 900)   # 16(a): rank 1's block [512, 1024)
 SPLIT_MAX_LEN = 1024                # past rows 0-1, row 1 crosses in decode
-SPLIT_STEPS = 16
+SPLIT_STEPS = 10      # row 1 (503) crosses 512 at the 10th (was 16)
 SPLIT_TRIES = 3         # 16(a): prompt sets tried past routing near ties
 SPLIT_PROMPTS = 8       # 16(b): granite-serve's first 8 prompts
 SPLIT_B_MAX_LEN = 4096
-SPLIT_B_STEPS = 64
+# 16(b) at 6 of granite's 24 layers and 32 decode steps (was 24 layers and
+# 64 steps), to keep the script within its time with phase 17
+SPLIT_B_LAYERS = 6
+SPLIT_B_STEPS = 32
 # 16(b), bf16 at full depth against the unsharded run on the card, on its
 # routing: each rank rounds its partial sums to bf16 before the
 # all-reduce (phase 15c(c): losses 4.4e-5 and gradient norms ~1% apart);
@@ -3395,47 +3553,114 @@ def routing(replay=None):
         moe_mod.dispatch_grouped = plain
 
 
-def split_vs_plain(tag, cfg, mesh, dev, rank):
-    """16(a): ``cfg`` (float32) served split over the (1, 2) mesh's
-    ``model`` axis from weights drawn one leaf at a time into the shards
-    (a CUDA generator seeded 0), against the unsharded LM on the CPU
-    (rank 0; the same weights, the plain versions): SPLIT_LENS' prompts
-    prefilled into caches of SPLIT_MAX_LEN, then SPLIT_STEPS decode steps
-    fed the CPU's greedy tokens (broadcast). Every call's logits within
-    LOGIT_TOL x max|logit|, the greedy tokens equal, the cache gathered
-    from the ranks within LOGIT_TOL x its max of the CPU's on the rows
-    below each length (and the SSM caches whole). A prompt set whose MoE
-    top-k flips at a near tie between the two runs is reported and the
-    next one tried (rank 0 decides, the ranks agree by a broadcast).
-    Returns the record."""
+@contextlib.contextmanager
+def compact_routes():
+    """Every MoE dispatch's choices recorded as it is made, in call order,
+    on its device in small types: (expert_idx uint8, slot_idx int16,
+    keep), 9 bytes a (token, choice) (a dropped choice's slot is below T
+    k)."""
+    plain = moe_mod.dispatch_grouped
+    record = []
+
+    def call(logits, **kw):
+        res = plain(logits, **kw)
+        record.append((res.expert_idx.to(torch.uint8),
+                       res.slot_idx.to(torch.int16), res.keep.clone()))
+        return res
+    moe_mod.dispatch_grouped = call
+    try:
+        yield record
+    finally:
+        moe_mod.dispatch_grouped = plain
+
+
+@contextlib.contextmanager
+def replayed_routes(routes, rows: slice):
+    """Each MoE dispatch takes a recorded run's choices (``compact_routes``,
+    in call order) for the rows ``rows`` of its batch in place of its own,
+    its combine weights computed from its own router logits at those
+    choices as ``sched.moe_dispatch`` computes them (the router keeps its
+    gradient); the positions kernel still runs. Yields [tokens whose set
+    of experts its own routing would have turned, tokens dispatched], a
+    device tensor."""
+    plain = moe_mod.dispatch_grouped
+    calls = iter(routes)
+    turned = None
+
+    def call(logits, **kw):
+        nonlocal turned
+        res = plain(logits, **kw)
+        e, slot, keep = (t[rows].to(logits.device) for t in next(calls))
+        e, slot = e.int(), slot.int()
+        diff = (res.expert_idx.sort(-1).values != e.sort(-1).values).any(-1)
+        count = torch.stack([diff.sum(), torch.tensor(
+            diff.numel(), device=diff.device)])
+        turned = count if turned is None else turned + count
+        probs = torch.softmax(logits.float(), dim=-1)
+        w = torch.gather(probs, 2, e.long()) * keep
+        denom = w.sum(2, keepdim=True)
+        w = torch.where(denom > 0, w / denom.clamp_min(1e-9),
+                        torch.zeros((), device=w.device))
+        return dataclasses.replace(res, expert_idx=e, slot_idx=slot,
+                                   keep=keep, weight=w)
+    moe_mod.dispatch_grouped = call
+    out = []
+    try:
+        yield out
+    finally:
+        moe_mod.dispatch_grouped = plain
+        out.extend(turned.tolist() if turned is not None else [0, 0])
+
+
+def split_vs_plain(tag, cfg, mesh, dev, rank, lengths=SPLIT_LENS,
+                   max_len=SPLIT_MAX_LEN, steps=SPLIT_STEPS):
+    """16(a) and 17(b): ``cfg`` (float32) served split over the mesh (16:
+    the (1, 2) mesh's ``model`` axis; 17: the (2, 1, 1) mesh's
+    ``expert`` axis, a row a rank) from weights drawn one leaf at a time
+    into the shards (a CUDA generator seeded 0), against the unsharded LM
+    on the CPU (rank 0; the same weights, the plain versions): prompts of
+    ``lengths`` prefilled into caches of ``max_len``, then ``steps``
+    decode steps fed the CPU's greedy tokens (broadcast), each rank on its
+    rows. Every call's logits (gathered over the rows) within LOGIT_TOL x
+    max|logit|, the greedy tokens equal, the cache gathered from the ranks
+    within LOGIT_TOL x its max of the CPU's on the rows below each length
+    (and the SSM caches whole). A prompt set whose MoE top-k flips at a
+    near tie between the two runs (every rank's routing gathered) is
+    reported and the next one tried (rank 0 decides, the ranks agree by a
+    broadcast). Returns the record."""
     import torch.distributed as dist
 
-    from repro_torch.launch.shardings import activation_rules, serve_shape
+    from repro_torch.launch.shardings import (
+        activation_rules,
+        placements,
+        serve_shape,
+    )
+    from repro_torch.models.distributed import gather_full
     from repro_torch.train.sharded import gather_cache, shard_params
 
     t_case = time.perf_counter()
-    b = len(SPLIT_LENS)
+    b = len(lengths)
     lm = LM(cfg, device=dev, materialize=False)
-    shard_params(lm, mesh, activation_rules(cfg, mesh, serve_shape(
-        b, SPLIT_MAX_LEN)), torch.Generator(device=dev).manual_seed(0))
+    rules = activation_rules(cfg, mesh, serve_shape(b, max_len))
+    shard_params(lm, mesh, rules, torch.Generator(device=dev).manual_seed(0))
+    by_rows = placements(mesh, (rules["batch"], None))
+    rows = lm.batch.rows
     host = card_and_host(cfg, dev)[1] if rank == 0 else None
     gc.collect()
     torch.cuda.empty_cache()
-    group = mesh.get_group("model")
-    src = dist.get_global_rank(group, 0)
     rng = np.random.default_rng(7)
-    rec = {"split": lm.split.flags()}
+    rec = {"split": lm.split.flags(), "moves": lm.split.moves}
     with routing() as calls:
         for attempt in range(SPLIT_TRIES):
-            toks, lens = split_prompts(cfg, SPLIT_LENS, rng)
-            feed = torch.zeros((SPLIT_STEPS, b), dtype=torch.int64)
+            toks, lens = split_prompts(cfg, lengths, rng)
+            feed = torch.zeros((steps, b), dtype=torch.int64)
             calls.clear()
             if rank == 0:
                 t0 = time.perf_counter()
-                hc = host.init_cache(b, SPLIT_MAX_LEN)
+                hc = host.init_cache(b, max_len)
                 logits, hc = host.prefill(hc, toks, lens)
                 want = [logits]
-                for step in range(SPLIT_STEPS):
+                for step in range(steps):
                     feed[step] = logits.argmax(-1)
                     logits, hc = host.decode_step(hc, feed[step][:, None],
                                                   lens + step)
@@ -3444,21 +3669,25 @@ def split_vs_plain(tag, cfg, mesh, dev, rank):
                 rec["plain_s"] = time.perf_counter() - t0
                 on_host = list(calls)
                 calls.clear()
-            dist.broadcast(feed, src=src, group=group)
+            dist.broadcast(feed, src=0)
             ops.reset_launch_counts()
             with kernel_shapes() as shapes:
-                cache = lm.init_cache(b, SPLIT_MAX_LEN)
-                got, cache, times = split_run(lm, cache, toks, lens,
-                                              feed.to(dev), dev)
+                cache = lm.init_cache(b, max_len)
+                got, cache, times = split_run(
+                    lm, cache, rows(torch.as_tensor(toks)),
+                    rows(torch.as_tensor(lens)).numpy(),
+                    rows(feed.T).T.to(dev), dev)
             rec["counts"], rec["shapes"] = ops.launch_counts(), shapes
             rec["cache_shapes"] = [list(t.shape) for t in _leaves(cache)]
             rec["seq"] = [lm.seq.lo, lm.seq.block]
             rec["prefill_s"], rec["step_ms"] = times[0], [
                 t * 1e3 for t in times[1:]]
+            got = [gather_full(g, mesh, by_rows) for g in got]
             whole = gather_cache(lm, cache)
+            on_split = whole_routes(calls, lm.batch)
             again = torch.zeros(())
             if rank == 0:
-                tie = routing_tie(tag, list(calls), on_host,
+                tie = routing_tie(tag, on_split, on_host,
                                   cfg.experts_per_token)
                 if tie is None:
                     errs = [_max_rel(g, w) for g, w in zip(got, want)]
@@ -3471,7 +3700,7 @@ def split_vs_plain(tag, cfg, mesh, dev, rank):
                             chosen[-1], logits.argmax(-1))):
                         fail(f"{tag}: greedy tokens differ from the CPU's")
                     # rows written: below each length after the last step
-                    n = lens + SPLIT_STEPS
+                    n = lens + steps
                     kv_g, ssm_g = _kv_rows(whole, n)
                     kv_w, ssm_w = _kv_rows(hc, n)
                     cache_err = max(_max_rel(g, w) for g, w in zip(
@@ -3485,7 +3714,7 @@ def split_vs_plain(tag, cfg, mesh, dev, rank):
                         f"near tie (gap {tie:.2e}) between the split and "
                         f"the unsharded run; the next prompts")
                     again.fill_(1.0)
-            dist.broadcast(again, src=src, group=group)
+            dist.broadcast(again, src=0)
             del whole
             if not again.item():
                 break
@@ -3495,7 +3724,8 @@ def split_vs_plain(tag, cfg, mesh, dev, rank):
     rec["lens"] = lens.tolist()
     plain = (f", the unsharded on the CPU {rec['plain_s']:.2f}s"
              if rank == 0 else "")
-    log(f"[split-{rank}] {tag}: split prefill {rec['prefill_s']:.2f}s, "
+    log(f"[{tag.split('-')[0]}-{rank}] {tag}: split prefill "
+        f"{rec['prefill_s']:.2f}s, "
         f"decode {sum(rec['step_ms']) / len(rec['step_ms']):.1f} ms a step"
         f"{plain}, {time.perf_counter() - t_case:.1f}s for the case")
     del lm, host, cache
@@ -3505,37 +3735,23 @@ def split_vs_plain(tag, cfg, mesh, dev, rank):
 
 
 def split_profile(lm, cache, nxt, lens) -> dict:
-    """One more decode step of 16(b)'s split LM under torch.profiler: the
-    wall, the host time inside gloo's collectives (``gloo:`` events) and
-    the device's busy time, in ms."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """One more decode step of 16(b)'s split LM, profiled
+    (``gloo_profile``)."""
+    def run():
         lm.decode_step(cache, nxt[:, None], lens)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    gloo = [e for e in events if e.key.startswith("gloo:")]
-    return {"wall_ms": wall * 1e3,
-            "gloo_ms": sum(e.cpu_time_total for e in gloo) / 1e3,
-            "gloo_calls": sum(e.count for e in gloo),
-            "gloo_kinds": sorted({e.key for e in gloo}),
-            "busy_ms": sum(getattr(e, "self_device_time_total", 0.0)
-                           for e in events if e.device_type
-                           == torch.autograd.DeviceType.CUDA) / 1e3}
+    return gloo_profile(run)
 
 
 def split_bf16(cfg, mesh, dev, rank, ref_path):
-    """16(b): granite at full width and depth in bf16 served split over the
-    (1, 2) mesh, its weights drawn into the shards (a CUDA generator
-    seeded 0, as the unsharded run's): SPLIT_PROMPTS prompts prefilled into
-    caches of SPLIT_B_MAX_LEN, then SPLIT_B_STEPS decode steps fed the
-    unsharded run's tokens (``ref_path``), timed, its launches counted (a
-    rank: 24 flash forwards, all on the tensor cores, and 24 positions a
-    prefill, 24 positions a decode step) and one more step profiled; rank
+    """16(b): ``cfg`` (granite at full width cut to SPLIT_B_LAYERS layers)
+    in bf16 served split over the (1, 2) mesh, its weights drawn into the
+    shards (a CUDA generator seeded 0, as the unsharded run's):
+    SPLIT_PROMPTS prompts prefilled into caches of SPLIT_B_MAX_LEN, then
+    SPLIT_B_STEPS decode steps fed the unsharded run's tokens
+    (``ref_path``), timed, its launches counted (a rank, a layer: a flash
+    forward on the tensor cores and a positions launch a prefill, a
+    positions launch a decode step) and one more step profiled; rank
     0 reports each call's logits against the unsharded run's, the greedy
     agreement and the top-k choices that differ from its. bf16 rounds the
     two runs' sums apart and a router's top-k turns at a near tie on such
@@ -3627,60 +3843,36 @@ def split_bf16(cfg, mesh, dev, rank, ref_path):
 
 
 def split_child(rank: int, port: int, out: str, smi: str, ref: str) -> int:
-    """16, rank ``rank`` of two processes sharing the card: a gloo world
-    (tcp://localhost at ``port``) and the (1, 2) ("data", "model") mesh on
-    it, then (a) granite and falcon-mamba-7b at full width cut to 2 layers
-    in float32, the KV cache too (``split_vs_plain``; a bf16 cache rounds
-    values 1e-7 apart to neighbouring bf16 values now and then), and (b)
-    granite at full width and depth in bf16 (``split_bf16``, the
-    unsharded run's tokens, logits and routing in ``ref``). Writes its
-    record to ``out`` as JSON. On an error it prints it and leaves at once
-    (as ``tp_child``)."""
-    import faulthandler
-    import traceback
-
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    faulthandler.dump_traceback_later(SPLIT_TIMEOUT - 30, exit=False)
-    t0 = time.perf_counter()
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=TP_RANKS, rank=rank)
-    try:
-        res = {"rank": rank, "backend": dist.get_backend(),
-               "init_s": time.perf_counter() - t0}
-        mesh = init_device_mesh("cuda", (1, TP_RANKS),
-                                mesh_dim_names=("data", "model"))
-        res["mesh_shape"] = [list(mesh.shape), list(mesh.mesh_dim_names)]
-        res["a"] = {}
+    """16, rank ``rank`` of two processes sharing the card on the (1, 2)
+    ("data", "model") mesh (``gloo_child``): (a) granite and
+    falcon-mamba-7b at full width cut to 2 layers in float32, the KV cache
+    too (``split_vs_plain``; a bf16 cache rounds values 1e-7 apart to
+    neighbouring bf16 values now and then), and (b) granite at full width
+    cut to SPLIT_B_LAYERS layers in bf16 (``split_bf16``, the unsharded
+    run's tokens, logits and routing in ``ref``)."""
+    def body(mesh, dev, rank):
+        res = {"a": {}}
         for arch in (ARCH, SSM_ARCH):
             cfg = dataclasses.replace(get_config(arch), n_layers=2,
                                       dtype="float32",
                                       kv_cache_dtype="float32")
             res["a"][arch] = split_vs_plain(f"split-{arch}", cfg, mesh, dev,
                                             rank)
-        res["b"] = split_bf16(get_config(ARCH), mesh, dev, rank, ref)
-    except BaseException as exc:
-        log(f"[split-{rank}] {type(exc).__name__}: {exc}")
-        traceback.print_exc()
-        sys.stderr.flush()
-        os._exit(1)
-    dist.destroy_process_group()
-    Path(out).write_text(json.dumps(res))
-    return 0
+        res["b"] = split_bf16(dataclasses.replace(
+            get_config(ARCH), n_layers=SPLIT_B_LAYERS), mesh, dev, rank, ref)
+        return res
+    return gloo_child("split", rank, port, out, SPLIT_TIMEOUT, (1, TP_RANKS),
+                      ("data", "model"), body)
 
 
 def split_reference(dev, smi: str) -> dict:
-    """16(b)'s reference: granite at full width and depth in bf16, the
-    unsharded LM on the card, SPLIT_PROMPTS prompts of granite-serve's mix
-    prefilled into caches of SPLIT_B_MAX_LEN and SPLIT_B_STEPS greedy
-    decode steps; its tokens, logits, MoE routing (``routing``) and prompts
-    saved for the ranks. Returns its times and peak memory."""
-    cfg = get_config(ARCH)
+    """16(b)'s reference: granite at full width cut to SPLIT_B_LAYERS
+    layers in bf16, the unsharded LM on the card, SPLIT_PROMPTS prompts of
+    granite-serve's mix prefilled into caches of SPLIT_B_MAX_LEN and
+    SPLIT_B_STEPS greedy decode steps; its tokens, logits, MoE routing
+    (``routing``) and prompts saved for the ranks. Returns its times and
+    peak memory."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=SPLIT_B_LAYERS)
     prompts = serve_prompts(cfg, SPLIT_PROMPTS)
     lens = np.array([len(p) for p in prompts], np.int32)
     toks = np.zeros((len(prompts), PROMPT_HI), np.int64)
@@ -3728,50 +3920,11 @@ def phase_serve_split(smi: str, dev) -> dict:
     processes, one gloo rank each, share the card on the (1, 2) mesh
     (``split_child``); both must end within SPLIT_TIMEOUT. Returns the
     launches of each kernel over rank 0's split runs."""
-    import socket
-
-    t16 = time.perf_counter()
     shutil.rmtree(SPLIT_OUT, ignore_errors=True)
     SPLIT_OUT.mkdir(parents=True)
     plain = split_reference(dev, smi)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    t0 = time.perf_counter()
-    procs, logs = [], []
-    for rank in range(TP_RANKS):
-        logs.append(open(SPLIT_OUT / f"rank{rank}.log", "w"))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), SPLIT_CHILD,
-             str(rank), str(port), str(SPLIT_OUT / f"rank{rank}.json"), smi,
-             str(SPLIT_OUT / "ref.pt")], stdout=logs[-1],
-            stderr=subprocess.STDOUT, text=True))
-    deadline = time.monotonic() + SPLIT_TIMEOUT
-    try:
-        while time.monotonic() < deadline and not all(
-                proc.poll() == 0 for proc in procs) and not any(
-                proc.poll() for proc in procs):
-            time.sleep(0.5)
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for f in logs:
-            f.close()
-    wall = time.perf_counter() - t0
-    texts = [(SPLIT_OUT / f"rank{r}.log").read_text()
-             for r in range(TP_RANKS)]
-    for text in texts:
-        for line in text.splitlines():
-            if line.startswith("[split-"):
-                log(line)
-    codes = [proc.returncode for proc in procs]
-    if codes != [0] * TP_RANKS:
-        fail(f"split: the ranks exited {codes} after {wall:.1f}s: "
-             f"{texts[0][-2500:]} || {texts[1][-2500:]}")
-    ranks = [json.loads((SPLIT_OUT / f"rank{r}.json").read_text())
-             for r in range(TP_RANKS)]
+    ranks, wall = card_ranks("split", SPLIT_CHILD, SPLIT_OUT, SPLIT_TIMEOUT,
+                             smi, str(SPLIT_OUT / "ref.pt"))
     if any(r["backend"] != "gloo" or r["mesh_shape"] != [
             [1, TP_RANKS], ["data", "model"]] for r in ranks):
         fail(f"split: backends {[r['backend'] for r in ranks]}, meshes "
@@ -3802,14 +3955,14 @@ def phase_serve_split(smi: str, dev) -> dict:
             f"launches {dict((k, v) for k, v in rec['counts'].items() if v)}"
             f", local shapes {rec['shapes']}; prefill {rec['prefill_s']:.3f}"
             f" s, decode {sum(steady) / len(steady):.1f} ms a step")
-    n = get_config(ARCH).n_layers
+    n = SPLIT_B_LAYERS
     b = [r["b"] for r in ranks]
     for r in b:
         steady = r["step_ms"][1:]
         r["mean_ms"] = sum(steady) / len(steady)
     rb = b[0]
     p_steady = plain["step_ms"][1:]
-    log(f"[split] {ARCH} full width and depth bf16 on the (1, 2) mesh, "
+    log(f"[split] {ARCH} full width x {n} layers bf16 on the (1, 2) mesh, "
         f"{SPLIT_PROMPTS} prompts ({rb['tokens']} tokens) into caches of "
         f"{SPLIT_B_MAX_LEN}, {SPLIT_B_STEPS} decode steps fed the unsharded"
         f" run's tokens: on its own routing every call's logits within "
@@ -3840,16 +3993,307 @@ def phase_serve_split(smi: str, dev) -> dict:
         log(f"[split] rank {r}, one decode step under torch.profiler: "
             f"{prof['wall_ms']:.1f} ms, of it {prof['gloo_ms']:.1f} ms of "
             f"host time in {prof['gloo_calls']} gloo collectives "
-            f"({', '.join(prof['gloo_kinds'])}), device busy "
+            f"({gloo_kinds(prof)}), device busy "
             f"{prof['busy_ms']:.1f} ms ({smi})")
     launches = {name: rb["prefill_counts"][name] + (
         SPLIT_B_STEPS * n if name == "dispatch_positions"
         else 0) for name in rb["prefill_counts"]}
     launches["mamba_scan"] = r0["a"][SSM_ARCH]["counts"]["mamba_scan"]
     shutil.rmtree(SPLIT_OUT, ignore_errors=True)
-    log(f"[phase 16] {time.perf_counter() - t16:.1f}s")
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# phase 17: expert parallelism over ``expert`` — each rank runs its experts,
+# the tokens moved to them by all-to-alls
+# ---------------------------------------------------------------------------
+
+EP_CHILD = "--ep-child"  # 17: two gloo ranks on the (2, 1, 1) ep mesh
+EP_DRY_CHILD = "--ep-dryrun"
+EP_SHAPE = (TP_RANKS, 1, 1)
+EP_AXES = ("expert", "data", "model")
+# 17(a): the slot tensor (ranks, groups, E/ranks, C, d) of a decode step (a
+# row a rank, C = 8) and of 17(c)'s step (two rows of 2,048 a rank, C =
+# 640) at granite's widths
+EP_A2A_SHAPES = ((TP_RANKS, 1, 16, 8, 1024), (TP_RANKS, 2, 16, 640, 1024))
+EP_A2A_REPS = 5
+EP_LENS = (377, 900)    # 17(b): a prompt a rank
+EP_STEPS = 8
+EP_TIMEOUT = 420
+EP_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_ep"
+EP_DRY_OUT = Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_ep_dryrun.json"
+EP_DRY = 4              # the dry run's ep cell: make_production_mesh(ep=4),
+EP_DRY_LAYERS = 2       # granite train_4k cut to 2 of its 24 layers
+
+
+def ep_all_to_all(mesh, dev, rank) -> dict:
+    """17(a): ``models.distributed.all_to_all`` over ``expert`` on CUDA
+    tensors (gloo stages them through the host), float32 and bf16, at
+    EP_A2A_SHAPES: its result and its backward's against the blocks each
+    rank sent (regenerated here from that rank's seed), bit for bit; then
+    each case timed over EP_A2A_REPS calls after a warm one. Returns
+    {case: ms a call}."""
+    import torch.distributed as dist
+
+    from repro_torch.models.distributed import all_to_all
+
+    group = mesh.get_group("expert")
+
+    def sent(r, shape, dtype, salt):
+        g = torch.Generator(device=dev).manual_seed(1000 * salt + r)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in EP_A2A_SHAPES:
+            case = f"{str(dtype)[6:]} {list(shape)}"
+            x = sent(rank, shape, dtype, 1).requires_grad_(True)
+            y = all_to_all(x, group)
+            y.backward(sent(rank, shape, dtype, 2))
+            want, want_g = (torch.cat([sent(r, shape, dtype, salt).chunk(
+                TP_RANKS)[rank] for r in range(TP_RANKS)]) for salt in (1, 2))
+            if not (torch.equal(y.detach(), want)
+                    and torch.equal(x.grad, want_g)):
+                fail(f"ep-{rank}: the all-to-all of {case} is not the "
+                     f"blocks sent (forward equal: "
+                     f"{torch.equal(y.detach(), want)})")
+            x = x.detach()
+            del y, want, want_g
+            all_to_all(x, group)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(EP_A2A_REPS):
+                all_to_all(x, group)
+            torch.cuda.synchronize()
+            times[case] = (time.perf_counter() - t0) * 1e3 / EP_A2A_REPS
+            del x
+    torch.cuda.empty_cache()
+    return times
+
+
+def ep_child(rank: int, port: int, out: str, smi: str, want: str) -> int:
+    """17, rank ``rank`` of two processes sharing the card on the (2, 1, 1)
+    ("expert", "data", "model") mesh (``gloo_child``): (a) the all-to-all
+    (``ep_all_to_all``); (b) granite at full width cut to 2 layers in
+    float32, each rank its 16 of the 32 experts: the loss and gradients of
+    2 x 512 tokens, a row a rank, its collectives recorded
+    (``tp_grads``), and a prefill of 2 prompts, a prompt a rank, and
+    EP_STEPS decode steps (``split_vs_plain``), each against the
+    unsharded LM on the CPU; (c) granite at full width and depth in bf16
+    on 14b's data, half a step's rows a rank (``split_train``), against
+    ``want``'s losses and gradient norms (15a's (1, 1) run, JSON), on that
+    run's routing (MESH_ROUTES): bf16 rounds the two runs' sums apart and
+    a router's top-k turns at a near tie on such a difference, which moves
+    a token's expert output by O(1) (16(b)); how many tokens' experts
+    would have turned is reported."""
+    def body(mesh, dev, rank):
+        n = GRAD_LAYERS
+        granite = dataclasses.replace(get_config(ARCH), n_layers=n,
+                                      dtype="float32")
+        return {"a": ep_all_to_all(mesh, dev, rank),
+                "b": tp_grads("ep-granite-grads", granite, mesh, dev, rank,
+                              {"flash_attention": 2 * n,
+                               "flash_attention_bwd": n,
+                               "dispatch_positions": 2 * n}, watch=True),
+                "b_serve": split_vs_plain(
+                    "ep-granite-serve", dataclasses.replace(
+                        granite, kv_cache_dtype="float32"), mesh, dev, rank,
+                    EP_LENS, SPLIT_MAX_LEN, EP_STEPS),
+                "c": split_train("ep", mesh, dev, smi, rank,
+                                 json.loads(want),
+                                 torch.load(MESH_ROUTES))}
+    return gloo_child("ep", rank, port, out, EP_TIMEOUT, EP_SHAPE, EP_AXES,
+                      body)
+
+
+def ep_dryrun_child(out: str) -> int:
+    """17's dry run (``chip_smoke.py --ep-dryrun OUT``, a CPU-only child):
+    ``launch.dryrun.lower_cell`` of granite's train_4k cell cut to
+    EP_DRY_LAYERS layers on ``make_production_mesh(ep=EP_DRY)`` (a fake
+    world of 256 ranks); its record to ``out`` as JSON."""
+    from repro_torch.launch.dryrun import lower_cell
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=EP_DRY_LAYERS)
+    Path(out).write_text(json.dumps(lower_cell(ARCH, "train_4k", False,
+                                               cfg=cfg, ep=EP_DRY)))
+    return 0
+
+
+def start_ep_dryrun():
+    """``ep_dryrun_child`` started; returns (process, start time)."""
+    EP_DRY_OUT.unlink(missing_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), EP_DRY_CHILD,
+         str(EP_DRY_OUT)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(proc.kill)      # if a phase fails before it is read
+    return proc, time.perf_counter()
+
+
+def ep_dryrun(proc, t0):
+    """17's dry run (``start_ep_dryrun``): its state bytes a rank the
+    plan's arithmetic on the (4, 4, 16) mesh, six all-to-alls a layer over
+    ``expert`` of the slot tensor's bytes, no all-gather over ``expert``;
+    printed."""
+    from repro_torch.models.moe import moe_capacity
+
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    if proc.returncode:
+        fail(f"ep dryrun: exited {proc.returncode}: {stdout[-2000:]} "
+             f"{stderr[-2000:]}")
+    rec = json.loads(EP_DRY_OUT.read_text())
+    EP_DRY_OUT.unlink()
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=EP_DRY_LAYERS)
+    shape = (EP_DRY, 256 // (16 * EP_DRY), 16)
+    want = plan_state_bytes(cfg, shape, EP_AXES)
+    rows = 256 // (EP_DRY * shape[1])
+    slot_bytes = rows * cfg.n_experts * moe_capacity(
+        4096, cfg.experts_per_token, cfg.n_experts,
+        cfg.capacity_factor) * cfg.d_model * 2
+    entries = rec["collective_log"]
+    moved = [c for c in entries if c["kind"] == "all-to-all"]
+    gathered = [c for c in entries if c["kind"] == "all-gather"
+                and c["axis"] == "expert"]
+    if rec["memory"]["state_bytes"] != want or gathered or len(moved) != \
+            6 * EP_DRY_LAYERS or any(c["axis"] != "expert" or c["bytes"]
+                                     != slot_bytes for c in moved):
+        fail(f"ep dryrun: state bytes {rec['memory']['state_bytes']} (the "
+             f"plan's {want}), {len(moved)} all-to-alls "
+             f"{[(c['axis'], c['bytes']) for c in moved[:2]]} (slots "
+             f"{slot_bytes} bytes), {len(gathered)} all-gathers over "
+             f"expert")
+    by = rec["collectives"]["by_kind"]
+    log(f"[ep-dryrun] {ARCH} train_4k x {EP_DRY_LAYERS} layers on a fake "
+        f"world of 256 ranks, (expert, data, model) = {shape}: state "
+        f"{rec['memory']['state_bytes']:,} bytes a rank (= the plan's), "
+        f"{rec['cost']['flops']:.4e} FLOPs a rank, {len(moved)} "
+        f"all-to-alls over expert of {slot_bytes:,} bytes (the slot "
+        f"tensor; {by['all-to-all']['bytes']:,} bytes on the wire), no "
+        f"all-gather over expert, {rec['collectives']['total_count']} "
+        f"collectives in all; done within {time.perf_counter() - t0:.1f}s "
+        f"of its start (host "
+        f"counts)")
+
+
+def phase_ep(smi: str, mesh_run: dict, tp_run: dict, dryrun) -> dict:
+    """Phase 17: two processes, one gloo rank each, share the card on the
+    (2, 1, 1) ("expert", "data", "model") mesh (``ep_child``); every rank
+    must end within EP_TIMEOUT. Then the ep cell's dry run, which has run
+    on the host since phase 2 (``dryrun``: ``start_ep_dryrun``'s child).
+    Returns the launches of each kernel over (c)'s run on rank 0."""
+    shutil.rmtree(EP_OUT, ignore_errors=True)
+    ranks, wall = card_ranks("ep", EP_CHILD, EP_OUT, EP_TIMEOUT, smi,
+                             json.dumps(mesh_run))
+    if any(r["backend"] != "gloo" or r["mesh_shape"] != [
+            list(EP_SHAPE), list(EP_AXES)] for r in ranks):
+        fail(f"ep: backends {[r['backend'] for r in ranks]}, meshes "
+             f"{[r['mesh_shape'] for r in ranks]}")
+    r0 = ranks[0]
+    n = GRAD_LAYERS
+    e = get_config(ARCH).n_experts // TP_RANKS
+    for r in ranks:
+        b, bs, c = r["b"], r["b_serve"], r["c"]
+        split = dict.fromkeys(b["split"], False) | {"ep": True}
+        over = [(k, shape) for k, axis, shape, _ in b["collectives"]
+                if axis == "expert"]
+        moved = [shape for k, shape in over if k == "all-to-all"]
+        if not (b["split"] == bs["split"] == c["split"] == split
+                and bs["moves"] and b["experts_local"] == e
+                and c["experts_local"] == e):
+            fail(f"ep: splits {b['split']} {bs['split']} {c['split']}, "
+                 f"tokens moved in serving: {bs['moves']}, experts a rank "
+                 f"{b['experts_local']} / {c['experts_local']} (want {e})")
+        if len(moved) != 6 * n or [s for k, s in over if k == "all-gather"]:
+            fail(f"ep: the step's collectives over expert: {over[:8]}")
+        want = {"flash_attention": 2, "dispatch_positions": 2 * (
+            1 + EP_STEPS)}
+        counts = {k: v for k, v in bs["counts"].items() if v}
+        if counts != want:
+            fail(f"ep: serving launches {counts}, expected {want}")
+    c = [r["c"] for r in ranks]
+    if c[0]["losses"] != c[1]["losses"] or \
+            c[0]["grad_norms"] != c[1]["grad_norms"]:
+        fail(f"ep: the ranks' losses or gradient norms differ: "
+             f"{c[0]['losses']} {c[0]['grad_norms']}, {c[1]['losses']} "
+             f"{c[1]['grad_norms']}")
+    ep_dryrun(*dryrun)
+    for case, ms in r0["a"].items():
+        shape = [int(x) for x in case.split("[")[1][:-1].split(", ")]
+        nbytes = math.prod(shape) * (4 if case.startswith("float32") else 2)
+        log(f"[ep] all-to-all over expert of CUDA {case}: the blocks sent, "
+            f"bit for bit, forward and backward; {ms:.2f} / "
+            f"{ranks[1]['a'][case]:.2f} ms a call (ranks 0 / 1), "
+            f"{nbytes / 2 / (ms * 1e-3) / 1e9:.2f} GB/s of the half that "
+            f"crosses ({smi})")
+    b = r0["b"]
+    slots = sorted({tuple(s) for k, _, s, _ in b["collectives"]
+                    if k == "all-to-all"})
+    log(f"[ep] {ARCH} x {n} layers f32 ({GRAD_ROWS}x{GRAD_SEQ}, a row a "
+        f"rank) on the (2, 1, 1) mesh, {b['experts_local']} of "
+        f"{get_config(ARCH).n_experts} experts a rank: loss "
+        f"{b['loss']:.6f} vs unsharded on the CPU (plain versions) "
+        f"{b['plain_loss']:.6f}, every gradient within {b['worst']:.3e} x "
+        f"its max|g| (bound {GRAD_TOL}; batch {b['attempts']} of "
+        f"{TP_TRIES}); launches "
+        f"{dict((k, v) for k, v in b['counts'].items() if v)}, local "
+        f"shapes {b['shapes']}; {len(b['collectives'])} collectives, of "
+        f"them {6 * n} all-to-alls over expert {slots}, no all-gather "
+        f"over expert; {b['split_s']:.2f}s")
+    bs = r0["b_serve"]
+    steady = bs["step_ms"][1:]
+    log(f"[ep] {ARCH} x {n} layers f32 served, prompts {bs['lens']} (a "
+        f"rank each) into caches of {SPLIT_MAX_LEN}, {EP_STEPS} decode "
+        f"steps: every call's logits within {max(bs['logit_errs']):.3e} x "
+        f"max|logit| of the unsharded LM on the CPU (bound {LOGIT_TOL}), "
+        f"greedy tokens equal, the gathered cache within "
+        f"{bs['cache_err']:.3e}; launches "
+        f"{dict((k, v) for k, v in bs['counts'].items() if v)} a rank; "
+        f"prefill {bs['prefill_s']:.3f} s, decode "
+        f"{sum(steady) / len(steady):.1f} ms a step")
+    tokens = TRAIN_SHARDS * TRAIN_ROWS * TRAIN_SEQ
+    for r in c:
+        steady = r["dts"][1:] or r["dts"]
+        r["mean_dt"] = sum(steady) / len(steady)
+    log(f"[ep] {ARCH} full width and depth bf16 on the (2, 1, 1) mesh, "
+        f"{MESH_STEPS} steps on the (1, 1) run's routing (its own would "
+        f"have turned {c[0]['turned'][0]} / {c[1]['turned'][0]} of "
+        f"{c[0]['turned'][1]} tokens' experts, ranks 0 / 1): losses "
+        f"{c[0]['losses']} vs the (1, 1) run's "
+        f"{mesh_run['losses']} (bound {TP_LOSS_RTOL} relative), gradient "
+        f"norms {c[0]['grad_norms']} vs {mesh_run['grad_norms']} (bound "
+        f"{TP_GNORM_RTOL} relative); {c[0]['experts_local']} experts a "
+        f"rank; step time {c[0]['mean_dt'] * 1e3:.1f} / "
+        f"{c[1]['mean_dt'] * 1e3:.1f} ms (ranks 0 / 1, steps 1-"
+        f"{MESH_STEPS - 1}), {tokens / c[0]['mean_dt']:.0f} tokens/s, peak "
+        f"{c[0]['peak_bytes']:,} / {c[1]['peak_bytes']:,} bytes "
+        f"({c[0]['peak_bytes'] / 1e9:.2f} / {c[1]['peak_bytes'] / 1e9:.2f} "
+        f"GB), weights {c[0]['local_bytes'] / 1e9:.3f} GB a rank; launches "
+        f"a step {c[0]['counts'][-1]}, local shapes {c[0]['shapes']}; "
+        f"15c(c)'s (1, 2) mesh beside it: {tp_run['mean_dt'] * 1e3:.1f} ms "
+        f"a step, {tokens / tp_run['mean_dt']:.0f} tokens/s, peak "
+        f"{tp_run['peak_bytes'] / 1e9:.2f} GB; gloo up in "
+        f"{r0['init_s']:.2f}s, the ranks {wall:.1f}s ({smi})")
+    for r, res in enumerate(c):
+        prof = res["profile"]
+        log(f"[ep] rank {r}, one loss and gradients under torch.profiler: "
+            f"{prof['wall_ms']:.1f} ms, of it {prof['gloo_ms']:.1f} ms of "
+            f"host time in {prof['gloo_calls']} gloo collectives "
+            f"({gloo_kinds(prof)}), device busy "
+            f"{prof['busy_ms']:.1f} ms; 15c(c)'s rank 0: "
+            f"{tp_run['profile']['wall_ms']:.1f} ms, gloo "
+            f"{tp_run['profile']['gloo_ms']:.1f} ms "
+            f"({gloo_kinds(tp_run['profile'])}), busy "
+            f"{tp_run['profile']['busy_ms']:.1f} ms ({smi})")
+    launches = {name: sum(s[name] for s in c[0]["counts"])
+                for name in c[0]["counts"][0]}
+    shutil.rmtree(EP_OUT, ignore_errors=True)
+    MESH_ROUTES.unlink(missing_ok=True)
+    return launches
 
 
 def start_dryrun():
@@ -3864,6 +4308,7 @@ def start_dryrun():
             str(DRYRUN_DIR)]
     proc = subprocess.Popen(cell, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env)
+    atexit.register(proc.kill)      # if a phase fails before it is read
     return proc, time.perf_counter(), env
 
 
@@ -3900,14 +4345,14 @@ def phase_dryrun(proc, t0, env):
         f"({rec['collectives']['total_bytes']:,} bytes on the wire), "
         f"useful {r['useful_compute_ratio']:.4f}, roofline "
         f"{r['roofline_fraction']:.4f} (H100 SXM data-sheet figures); "
-        f"{time.perf_counter() - t0:.1f}s with summarize")
+        f"done within {time.perf_counter() - t0:.1f}s of its start, "
+        f"summarize included")
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
 
 
 def phase_train(smi: str, dev):
     """Phase 14; returns the backward kernels' records and the training
     path's launch counts (14b)."""
-    t14 = time.perf_counter()
     records = phase_kernels_bwd(dev, smi)
     torch.cuda.empty_cache()
     granite = phase_granite_train(dev, smi)
@@ -3922,7 +4367,6 @@ def phase_train(smi: str, dev):
     torch.cuda.empty_cache()
     phase_restart(smi)
     torch.cuda.empty_cache()
-    log(f"[phase 14] {time.perf_counter() - t14:.1f}s")
     return records, granite, falcon
 
 
@@ -3942,32 +4386,32 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} ({smi})")
-    t_start = time.perf_counter()
+    global T_START
+    T_START = t = time.perf_counter()
 
     phase_build()
+    t = mark("1", t)
+    # 15b's and 17's dry runs: CPU-only children, on the host from here on
+    dryrun, ep_dryrun_proc = start_dryrun(), start_ep_dryrun()
 
-    base = scenario()
-    scs = lab.expand_grid(base, {"seed": range(SEEDS)})
-    backend = lab.get_backend("batched")
-    t0 = time.perf_counter()
-    slot, works, powers, cfg, scale = backend.compile(
-        scs, backend.default_dt, fifo_dispatch=True)
+    # phase 3 first: phase 2 checks the kernels on the inputs it lowered
+    results, launches, (slot, works, powers, cfg, scale) = phase_sweep(
+        scenario())
     tensors = to_tensors(slot, works, powers, scale, device=dev)
-    log(f"[data] slot/works {slot.shape}, sum(powers)={powers.sum():.0f}, "
-        f"T={cfg.n_slots}, n={cfg.n_nodes}, lowered in "
-        f"{time.perf_counter() - t0:.1f}s")
     del slot, works
-
+    t = mark("3", t)
     kernels = phase_kernels(dev, tensors[0], tensors[1], cfg)
-    kernels += phase_kernels_lm(dev)
-    results, launches = phase_sweep(base, cfg, powers, scale)
-    for k in kernels[:2]:
+    for k in kernels:
         k["launches"] = launches[k["name"]]
+    kernels += phase_kernels_lm(dev)
+    t = mark("2", t)
     engine_s = phase_repeat(results, tensors, cfg)
     phase_profile(tensors, cfg, engine_s)
     del tensors, results
     torch.cuda.empty_cache()
+    t = mark("3 (rerun and profile)", t)
     phase_small(dev)
+    t = mark("4", t)
 
     lm, prompts, launches = phase_serve(dev)
     for k in kernels[2:]:
@@ -3975,19 +4419,25 @@ def main() -> int:
     phase_serve_profile(lm, prompts)
     del lm
     torch.cuda.empty_cache()
+    t = mark("5", t)
     phase_serve_vs_plain(dev)
     torch.cuda.empty_cache()
+    t = mark("6", t)
 
     mamba = phase_kernels_mamba(dev)
+    t = mark("7", t)
     launches = phase_falcon_serve(dev)
     mamba["launches"] = launches["mamba_scan"]
     kernels.append(mamba)
     torch.cuda.empty_cache()
+    t = mark("8", t)
     phase_falcon_vs_plain(dev)
+    t = mark("9", t)
     phase_hybrid_vs_plain(dev)
     torch.cuda.empty_cache()
+    t = mark("10", t)
     ev0 = phase_events(dev, smi)
-    t12 = time.perf_counter()
+    t = mark("11", t)
     launches = phase_trace_sweep(dev, smi)
     for k in kernels[:2]:
         k["trace_launches"] = launches[k["name"]]
@@ -3996,12 +4446,11 @@ def main() -> int:
     phase_federation(dev, smi)
     torch.cuda.empty_cache()
     phase_dag(smi)
-    log(f"[phase 12] {time.perf_counter() - t12:.1f}s")
-    t13 = time.perf_counter()
+    t = mark("12", t)
     launches = phase_cli(ev0, smi)
     for k in kernels[:2]:
         k["cli_launches"] = launches[k["name"]]
-    log(f"[phase 13] {time.perf_counter() - t13:.1f}s")
+    t = mark("13", t)
     records, granite, falcon = phase_train(smi, dev)
     for k in kernels:
         if k["name"] in granite:
@@ -4009,19 +4458,28 @@ def main() -> int:
     kernels[-1]["falcon_train_launches"] = falcon["mamba_scan"]
     kernels += records
     torch.cuda.empty_cache()
-    mesh, tp = phase_mesh(smi)
+    t = mark("14", t)
+    mesh, tp, mesh_run, tp_run = phase_mesh(smi, dryrun)
     for k in kernels:
         if k["name"] in mesh:
             k["mesh_launches"] = mesh[k["name"]]
         if k["name"] in tp:
             k["tp_launches"] = tp[k["name"]]
     torch.cuda.empty_cache()
+    t = mark("15", t)
     split = phase_serve_split(smi, dev)
     for k in kernels:
         if k["name"] in split:
             k["split_serve_launches"] = split[k["name"]]
+    torch.cuda.empty_cache()
+    t = mark("16", t)
+    ep = phase_ep(smi, mesh_run, tp_run, ep_dryrun_proc)
+    for k in kernels:
+        if k["name"] in ep:
+            k["ep_launches"] = ep[k["name"]]
+    t = mark("17", t)
 
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] all phases passed in {time.perf_counter() - T_START:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [
@@ -4044,4 +4502,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == [SPLIT_CHILD]:
         sys.exit(split_child(int(sys.argv[2]), int(sys.argv[3]),
                              sys.argv[4], sys.argv[5], sys.argv[6]))
+    if sys.argv[1:2] == [EP_DRY_CHILD]:
+        sys.exit(ep_dryrun_child(sys.argv[2]))
+    if sys.argv[1:2] == [EP_CHILD]:
+        sys.exit(ep_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                          sys.argv[5], sys.argv[6]))
     sys.exit(main())

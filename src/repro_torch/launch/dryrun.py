@@ -32,8 +32,11 @@ The record has the JAX package's keys (``src/repro/launch/dryrun.py``):
     holds the same exact counts. ``cost.bytes_accessed``: the bytes every
     op but views reads and writes.
   * ``collectives``: the collectives the step issues, recorded as it runs
-    (kind, result shape, dtype, group size) and priced by
-    ``roofline.collective_stats`` — in place of parsing HLO text.
+    (kind, result shape, dtype, group size, the mesh dim it runs over:
+    ``collective_log``) and priced by ``roofline.collective_stats`` — in
+    place of parsing HLO text. On an ``ep`` mesh the MoE layers'
+    all-to-alls over ``expert`` show there, six a layer a train step
+    (dispatch and return, forward, remat recompute and backward).
   * ``lower_s``: seconds to build and place the state; ``compile_s``:
     seconds of the counted step.
 
@@ -78,7 +81,7 @@ from .mesh import make_production_mesh, set_mesh
 from .roofline import collective_stats, roofline_report
 from .shardings import activation_rules
 
-__all__ = ["input_specs", "lower_cell", "main"]
+__all__ = ["Recorder", "input_specs", "lower_cell", "mesh_groups", "main"]
 
 _KINDS = {"allreduce_": "all-reduce", "allgather_": "all-gather",
           "_allgather_base_": "all-gather",
@@ -97,13 +100,15 @@ def _nbytes(x) -> int:
     return 0
 
 
-class _Recorder(TorchDispatchMode):
-    """Records the collectives a step issues and sums the bytes its ops
-    read and write (ops on plain tensors: a DTensor op is counted through
-    the local ops it runs)."""
+class Recorder(TorchDispatchMode):
+    """Records the collectives a step issues (with the mesh dim each runs
+    over, by its process group's name in ``axes``) and sums the bytes its
+    ops read and write (ops on plain tensors: a DTensor op is counted
+    through the local ops it runs)."""
 
-    def __init__(self):
+    def __init__(self, axes: dict | None = None):
         super().__init__()
+        self.axes = axes or {}
         self.collectives: list[dict] = []
         self.bytes = 0
 
@@ -112,8 +117,8 @@ class _Recorder(TorchDispatchMode):
         if func.namespace == "c10d":
             name = func._opname
             group = [a for a in args if isinstance(a, torch.ScriptObject)]
-            size = (dist.ProcessGroup.unbox(group[0]).size() if group
-                    else 1)
+            pg = dist.ProcessGroup.unbox(group[0]) if group else None
+            size = pg.size() if pg is not None else 1
             result = args[0]          # the written tensors
             first = result
             while isinstance(first, (list, tuple)):
@@ -121,7 +126,9 @@ class _Recorder(TorchDispatchMode):
             self.collectives.append({
                 "kind": _KINDS.get(name, name), "bytes": _nbytes(result),
                 "shape": list(first.shape), "dtype": str(first.dtype),
-                "group": size})
+                "group": size,
+                "axis": self.axes.get(pg.group_name) if pg is not None
+                else None})
         elif all(t is torch.Tensor for t in types) and not func.is_view:
             self.bytes += _nbytes(list(args)) + _nbytes(
                 list(out) if isinstance(out, (tuple, list)) else out)
@@ -195,7 +202,7 @@ def _lower_one(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool,
             def run():
                 return fn(cache, rows["tokens"], rows["lengths"])
         t_lower = time.perf_counter() - t0
-        rec = _Recorder()
+        rec = Recorder(mesh_groups(mesh))
         with FlopCounterMode(display=False) as flops, rec:
             out = run()
         t_step = time.perf_counter() - t0 - t_lower
@@ -233,6 +240,12 @@ def _lower_one(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool,
                       "collective_count": float(coll["total_count"])},
         "collective_log": rec.collectives,
     }
+
+
+def mesh_groups(mesh) -> dict:
+    """{process group name: mesh dim name} of a ``DeviceMesh``'s dims."""
+    return {mesh.get_group(i).group_name: name
+            for i, name in enumerate(mesh.mesh_dim_names)}
 
 
 def _leaves(tree) -> list:

@@ -132,26 +132,35 @@ def compute_split(cfg: ModelConfig, mesh, rules: dict | None = None
     (``moe_layout``'s ``e_ax == "model"``), ``moe_ff`` (the experts'
     hidden dim: the legacy layout, or ``act_ff == "model"``) and ``inner``
     (Mamba's channels, which the JAX package constrains by the ``ff``
-    rule). All False on a model axis of size 1 (or none): the step
-    computes as without a mesh."""
+    rule); and ``ep``, the experts split over the ``expert`` axis
+    (``e_ax == "expert"``). The ``model`` flags are all False on a model
+    axis of size 1 (or none), ``ep`` on an expert axis of size 1 (or
+    none): the step computes as without a mesh."""
     ax = mesh_axis_sizes(mesh)
     m = ax.get("model", 1)
-    if m == 1:
-        return dict.fromkeys(ModelSplit.KEYS, False)
+    split = dict.fromkeys(ModelSplit.KEYS, False)
+    if m == 1 and ax.get("expert", 1) == 1:
+        return split
     rules = activation_rules(cfg, mesh) if rules is None else rules
+    split["ep"] = (cfg.n_experts > 0 and ax.get("expert", 1) > 1
+                   and rules.get("experts") == "expert")
+    if m == 1:
+        return split
 
     def on(logical: str, dim: int) -> bool:
         return rules.get(logical) == "model" and dim % m == 0
 
     heads = on("heads", cfg.n_heads or 1) and cfg.n_heads > 0
-    return {"heads": heads,
-            "kv_heads": heads and on("kv_heads", cfg.n_kv_heads or 1),
-            "ff": cfg.family != "ssm" and on("ff", cfg.d_ff or 1),
-            "vocab": on("vocab", cfg.vocab_padded),
-            "experts": cfg.n_experts > 0 and rules.get("experts") == "model",
-            "moe_ff": (cfg.n_experts > 0 and rules.get("experts") != "model"
-                       and on("moe_ff", cfg.d_ff)),
-            "inner": cfg.is_ssm and on("ff", cfg.d_inner)}
+    split.update(
+        heads=heads,
+        kv_heads=heads and on("kv_heads", cfg.n_kv_heads or 1),
+        ff=cfg.family != "ssm" and on("ff", cfg.d_ff or 1),
+        vocab=on("vocab", cfg.vocab_padded),
+        experts=cfg.n_experts > 0 and rules.get("experts") == "model",
+        moe_ff=(cfg.n_experts > 0 and rules.get("experts") != "model"
+                and on("moe_ff", cfg.d_ff)),
+        inner=cfg.is_ssm and on("ff", cfg.d_inner))
+    return split
 
 
 # ---------------------------------------------------------------------------

@@ -40,9 +40,25 @@ cache (``SeqSplit``): the KV cache's sequence cut over the mesh dims
 block apart and merges the partial softmaxes over the sequence's ranks
 (``merge_softmax``: the max all-reduced first, then the rescaled sums).
 
+Along ``expert`` (the ``ep`` meshes of ``launch.mesh``, where the plans
+lay the experts' dim) each rank holds and runs its own experts,
+``[r E/ep, (r + 1) E/ep)`` (``ModelSplit.ep``): the experts' weights are
+gathered over every other dim but kept local over ``expert``
+(``EXPERT``), and their gradient is not summed over it: it is already the
+gradient of the rank's experts over every token that reached them. Where
+the batch's rows are split over ``expert`` the tokens move, as GShard
+moves them: each rank's slot tensor (G, E, C, d) is cut along E into ep
+blocks sent to their owners (``to_experts``, an all-to-all; backward: the
+inverse all-to-all), the experts run on (ep G, E/ep, C, d), and the
+results go back the same way (``from_experts``). Where the rows are not
+split over ``expert`` (a serve batch that does not divide), no token
+moves: each rank runs its experts on every row and its partial combine is
+summed over ``expert`` (``expert_sum``), as the experts over ``model`` are.
+
 Each collective runs on the process group of one mesh dim and is skipped
-where that dim has size 1, and a model axis of size 1 splits nothing, so a
-(1, 1) mesh computes what the unsharded LM does, bit for bit.
+where that dim has size 1, and a model axis of size 1 splits nothing (nor
+does an expert axis of size 1), so a (1, 1) mesh computes what the
+unsharded LM does, bit for bit.
 """
 
 from __future__ import annotations
@@ -54,10 +70,11 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
 __all__ = ["BatchGroup", "ModelSplit", "SeqSplit", "LOCAL", "WHOLE",
-           "PARTS", "columns", "merge_softmax", "merge_blocks", "map_cache",
-           "to_local", "local_chunk", "gather_full", "sum_shard", "gathered"]
+           "PARTS", "EXPERT", "columns", "merge_softmax", "merge_blocks",
+           "map_cache", "to_local", "local_chunk", "gather_full",
+           "sum_shard", "gathered", "all_to_all"]
 
-LOCAL, WHOLE, PARTS = "local", "whole", "parts"
+LOCAL, WHOLE, PARTS, EXPERT = "local", "whole", "parts", "expert"
 
 
 class BatchGroup:
@@ -137,24 +154,70 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    """Block i of dim 0 sent to rank i of the group, block i of the result
+    received from it; backward: the same exchange of the gradient (its
+    inverse: the blocks are equal)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s dim 0 cut into ``group.size()`` equal blocks, block i sent
+    to the group's rank i; the result's block i is rank i's block for this
+    rank (differentiable)."""
+    return _AllToAll.apply(x, group)
+
+
+def _axis(mesh, name: str):
+    """(size, this rank's index, process group or None) of a mesh dim;
+    (1, 0, None) where the mesh lacks it."""
+    names = list(mesh.mesh_dim_names)
+    if name not in names:
+        return 1, 0, None
+    dim = names.index(name)
+    size = mesh.size(dim)
+    return (size, mesh.get_local_rank(dim),
+            None if size == 1 else mesh.get_group(dim))
+
+
 class ModelSplit:
     """The train step's split over the mesh's ``model`` axis: the flags of
     ``launch.shardings.compute_split`` (``heads``, ``kv_heads``, ``ff``,
     ``vocab``, ``experts``, ``moe_ff``, ``inner``) and this rank's place on
-    the axis, with the collectives that the split products need. With a
-    model axis of size 1 every flag is False and nothing is split."""
+    the axis, with the collectives that the split products need; and
+    ``ep``, the experts laid over the ``expert`` axis, with this rank's
+    place there and whether the batch's ``rows`` are split over it (the
+    tokens move to their experts: ``moves``). With a model axis of size 1
+    every ``model`` flag is False and nothing is split over it; with an
+    expert axis of size 1 (or none) ``ep`` is False."""
 
     KEYS = ("heads", "kv_heads", "ff", "vocab", "experts", "moe_ff",
-            "inner")
+            "inner", "ep")
 
-    def __init__(self, mesh, flags: dict):
+    def __init__(self, mesh, flags: dict, rows=()):
         names = list(mesh.mesh_dim_names)
         self.dim = names.index("model") if "model" in names else None
-        self.size = 1 if self.dim is None else mesh.size(self.dim)
-        self.rank = 0 if self.dim is None else mesh.get_local_rank(self.dim)
-        self.group = None if self.size == 1 else mesh.get_group(self.dim)
+        self.size, self.rank, self.group = _axis(mesh, "model")
+        self.ep_size, self.ep_rank, self.ep_group = _axis(mesh, "expert")
         for key in self.KEYS:
-            setattr(self, key, bool(flags[key]) and self.size > 1)
+            setattr(self, key, bool(flags.get(key)) and (
+                self.ep_size if key == "ep" else self.size) > 1)
+        self.moves = self.ep and "expert" in tuple(rows or ())
 
     def flags(self) -> dict[str, bool]:
         """What is split, by ``KEYS``."""
@@ -191,6 +254,37 @@ class ModelSplit:
         part = width // parts
         n = part // self.size
         return [(k * part + self.block(n), n) for k in range(parts)]
+
+    def to_experts(self, x: torch.Tensor) -> torch.Tensor:
+        """A slot tensor (G, E, C, ...) of this rank's groups over every
+        expert -> (ep G, E/ep, C, ...) of every ``expert`` rank's groups
+        over this rank's experts (rank i's groups in block i): one
+        all-to-all over ``expert``."""
+        g, e = x.shape[:2]
+        n = e // self.ep_size
+        blocks = x.reshape(g, self.ep_size, n, *x.shape[2:]).transpose(0, 1)
+        return all_to_all(blocks, self.ep_group).reshape(
+            self.ep_size * g, n, *x.shape[2:])
+
+    def from_experts(self, y: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``to_experts``: (ep G, E/ep, C, ...) -> (G, E,
+        C, ...), each group's slots back on the rank that holds its
+        rows."""
+        g, n = y.shape[0] // self.ep_size, y.shape[1]
+        back = all_to_all(y.reshape(self.ep_size, g, n, *y.shape[2:]),
+                          self.ep_group)
+        return back.transpose(0, 1).reshape(g, self.ep_size * n,
+                                            *y.shape[2:])
+
+    def expert_copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``copy_to`` over ``expert``: rows every expert rank holds
+        entering its experts (no token moves)."""
+        return _CopyTo.apply(x, self.ep_group)
+
+    def expert_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``reduce_from`` over ``expert``: the partial combine of this
+        rank's experts summed over the expert ranks."""
+        return _ReduceFrom.apply(x, self.ep_group)
 
 
 def merge_softmax(m, s, o, amax, add):
@@ -365,23 +459,30 @@ class _Gather(torch.autograd.Function):
 
 def gathered(tree, batch: BatchGroup, modes=WHOLE, path: tuple = ()):
     """``tree`` (nested dicts) with every DTensor leaf gathered as the step
-    uses it: ``modes`` mirrors the tree, a mode (``LOCAL``, ``WHOLE`` or
-    ``PARTS``, see the module docstring) standing for every leaf below it
-    and a key it lacks for ``WHOLE``; other leaves as they are."""
+    uses it: ``modes`` mirrors the tree, a mode (``LOCAL``, ``WHOLE``,
+    ``PARTS`` or ``EXPERT``, see the module docstring; a tuple of modes
+    for a leaf local over both ``expert`` and ``model``) standing for
+    every leaf below it and a key it lacks for ``WHOLE``; other leaves as
+    they are."""
     if isinstance(tree, dict):
-        return {k: gathered(v, batch, modes if isinstance(modes, str)
+        leaf_mode = isinstance(modes, (str, tuple))
+        return {k: gathered(v, batch, modes if leaf_mode
                             else modes.get(k, WHOLE), path + (k,))
                 for k, v in tree.items()}
     if not isinstance(tree, DTensor):
         return tree
-    skip, summed = (), ()
-    if modes == LOCAL:
-        dim = list(tree.device_mesh.mesh_dim_names).index("model")
-        if not isinstance(tree.placements[dim], Shard):
-            raise ValueError(f"{'.'.join(path)}: computed split over model "
-                             f"but placed {tree.placements}")
-        skip = (dim,)
-    elif modes == PARTS:
+    modes = (modes,) if isinstance(modes, str) else modes
+    names = list(tree.device_mesh.mesh_dim_names)
+    skip, summed = [], ()
+    for mode, axis in ((LOCAL, "model"), (EXPERT, "expert")):
+        if mode in modes:
+            dim = names.index(axis)
+            if not isinstance(tree.placements[dim], Shard):
+                raise ValueError(f"{'.'.join(path)}: computed split over "
+                                 f"{axis} but placed {tree.placements}")
+            skip.append(dim)
+    skip = tuple(skip)
+    if PARTS in modes:
         summed = ("model",)
     if torch.is_grad_enabled() and tree.requires_grad:
         return _Gather.apply(tree, batch, skip, summed)

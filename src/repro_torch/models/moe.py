@@ -14,9 +14,20 @@ Under a split over ``model`` (``moe_apply``'s ``split``, a
 ``models.distributed.ModelSplit``) routing and dispatch stay replicated,
 so the positions kernel still sees every token of the rank's rows, and the
 aux loss and counters are the whole layer's. With ``experts`` a rank runs
-its E/m experts' slots only; with ``moe_ff`` (the legacy layout) every
-expert on its ff columns. Either way its combine is a partial sum,
-all-reduced over ``model``.
+its E/m experts' slots only; with ``moe_ff`` (the legacy layout, or an
+``ep`` mesh's experts) every expert it holds on its ff columns. Either way
+its combine is a partial sum, all-reduced over ``model``.
+
+With the experts over ``expert`` (``split.ep``) routing, the PSTS
+rebalance and the positions kernel still run on the rank's own rows, per
+group. Where those rows are the rank's share of a batch split over
+``expert`` (``split.moves``) the slot tensor (G, E, C, d) goes to the
+experts' owners by an all-to-all (``ModelSplit.to_experts``), the rank's
+E/ep experts run on every expert rank's groups, and the results come back
+by the inverse all-to-all (``from_experts``) before the combine, which
+runs locally as without a split. Where every expert rank holds the same
+rows, no token moves: a rank runs its experts' slots of every row and its
+partial combine is summed over ``expert``.
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ from torch import nn
 
 from ..sched.moe_dispatch import dispatch_grouped, router_aux_loss
 from .common import Dense, reset_parameters, trunc_normal
-from .distributed import LOCAL
+from .distributed import EXPERT, LOCAL
 from .mlp import activation_fn
 
 __all__ = ["MoE", "moe_init", "moe_apply", "moe_capacity", "split_modes"]
@@ -95,8 +106,9 @@ def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter",
     """x: (B, S, d) -> (y, aux). Routing group = one sequence. ``batch``
     (a ``models.distributed.BatchGroup``): x is this rank's rows of a batch
     split over ranks, and the aux loss is this rank's share of the whole
-    batch's. ``split``: the weights are this rank's experts or ff columns
-    (module docstring)."""
+    batch's. ``split``: the weights are this rank's experts or ff columns,
+    and with ``split.ep`` its experts over ``expert`` (module
+    docstring)."""
     b, s, d = x.shape
     compute_dtype = x.dtype
     k = cfg.experts_per_token
@@ -110,23 +122,42 @@ def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter",
                            position_method=cfg.dispatch_positions)
 
     tp = split is not None and (split.experts or split.moe_ff)
-    # the experts this rank runs: [lo, lo + n)
+    ep = split is not None and split.ep
+    moves = ep and split.moves
+    # the experts this rank runs on its rows' slots: [lo, lo + n) (every
+    # expert's where the slots go to their owners)
     n = p["wi"].shape[0]
-    lo = split.block(n) if tp and split.experts else 0
+    cut = (tp and split.experts) or (ep and not moves)
+    lo = 0
+    if cut:
+        lo = split.block(n) if split.experts else split.ep_rank * n
+    if moves:
+        n = cfg.n_experts
     xs = split.copy_to(x) if tp else x
+    if ep and not moves:
+        xs = split.expert_copy(xs)
+
+    def ffn(xin):
+        if moves:
+            return split.from_experts(_expert_ffn(
+                p, split.to_experts(xin), cfg.activation, compute_dtype))
+        return _expert_ffn(p, xin, cfg.activation, compute_dtype)
+
     if mode == "scatter":
         tok, valid = res.slot_to_token()                  # (G, E, C) each
         gidx = torch.arange(b, device=x.device)
         xin = xs[gidx[:, None, None], tok[:, lo:lo + n].long()]
         xin = xin * valid[:, lo:lo + n, :, None].to(compute_dtype)
-        out = _expert_ffn(p, xin, cfg.activation, compute_dtype)
+        out = ffn(xin)
         # a dropped assignment's slot may lie beyond C: read any slot, its
         # weight is 0 (the JAX gather clamps the index the same way)
         e = res.expert_idx.long()
         w = (res.weight * res.keep).to(compute_dtype)
         if tp:
             w = split.copy_to(w)
-        if tp and split.experts:            # other ranks' experts weigh 0
+        if ep and not moves:
+            w = split.expert_copy(w)
+        if cut:                             # other ranks' experts weigh 0
             e = e - lo
             w = torch.where((e >= 0) & (e < n), w,
                             torch.zeros((), dtype=w.dtype, device=w.device))
@@ -138,14 +169,18 @@ def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter",
         d_tensor, combine = res.dense(dtype=compute_dtype)
         if tp:      # before the cut: the gradient's parts sum over ranks
             combine = split.copy_to(combine)
+        if ep and not moves:
+            combine = split.expert_copy(combine)
         d_tensor, combine = d_tensor[:, :, lo:lo + n], combine[:, :, lo:lo + n]
         xin = torch.einsum("gtec,gtd->gecd", d_tensor, xs)
-        out = _expert_ffn(p, xin, cfg.activation, compute_dtype)
+        out = ffn(xin)
         y = torch.einsum("gtec,gecd->gtd", combine, out)
     else:
         raise ValueError(f"unknown moe mode {mode!r}")
     if tp:
         y = split.reduce_from(y)
+    if ep and not moves:
+        y = split.expert_sum(y)
 
     aux = {"moe_aux_loss": aux_loss,
            "overflow": res.aux["overflow"].sum(),
@@ -156,8 +191,9 @@ def moe_apply(p, x, cfg, *, rebalance=None, mode: str = "scatter",
 
 def split_modes(split) -> dict:
     """How the split uses each weight (``models.distributed``): the
-    experts' weights keep their shards of the rank's experts or ff
-    columns; the router is whole."""
-    if not (split.experts or split.moe_ff):
-        return {}
-    return dict.fromkeys(("wi", "wg", "wo"), LOCAL)
+    experts' weights keep their shards of the rank's experts over
+    ``expert`` (``EXPERT``) and of its experts or ff columns over
+    ``model`` (``LOCAL``); the router is whole."""
+    modes = (((EXPERT,) if split.ep else ())
+             + ((LOCAL,) if split.experts or split.moe_ff else ()))
+    return dict.fromkeys(("wi", "wg", "wo"), modes) if modes else {}

@@ -13,7 +13,9 @@ step, the loop and the checkpoints do with them.
 * Forward and backward: each rank takes its block of the batch's rows;
   along ``model`` the ranks split the compute of those rows
   (``launch.shardings.compute_split``: heads, ff columns, experts, Mamba
-  channels, vocabulary columns), each on its weights' ``model`` shards.
+  channels, vocabulary columns), each on its weights' ``model`` shards;
+  along ``expert`` each rank runs its own experts on the tokens an
+  all-to-all brings it (``models.distributed``).
   The LM gathers a sub-block's weights over the other mesh dims when it
   runs, and the gather's backward sums their gradients over the batch's
   ranks (``models.distributed``). A split leaf's gradient is this rank's
@@ -90,7 +92,8 @@ class Sharding:
     def __init__(self, lm, mesh, rules: dict):
         self.mesh = mesh
         self.batch = BatchGroup(mesh, rules.get("batch"))
-        self.split = ModelSplit(mesh, compute_split(lm.cfg, mesh, rules))
+        self.split = ModelSplit(mesh, compute_split(lm.cfg, mesh, rules),
+                                rules.get("batch"))
         shapes = param_tree(lm)
         specs = state_pspecs(TrainState(shapes, AdamWState(None, shapes,
                                                            shapes)),

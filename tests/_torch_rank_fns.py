@@ -59,9 +59,14 @@ def sharded_step(rank, world, arch, state_dict, batch, multi_pod, eps):
     return step_on_mesh(rank, arch, state_dict, batch, mesh, eps)
 
 
-def step_on_mesh(rank, arch, state_dict, batch, mesh, eps):
-    """``sharded_step`` on ``mesh``; every rank also returns the compute's
-    split over ``model``."""
+def step_on_mesh(rank, arch, state_dict, batch, mesh, eps, changes=None,
+                 watch=None):
+    """``sharded_step`` on ``mesh`` (the smoke config with ``changes``);
+    every rank also returns the compute's split over ``model``, and with
+    ``watch`` (a dispatch mode made from the mesh, with a ``record()``)
+    what it saw of the loss and gradients."""
+    import contextlib
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.shardings import activation_rules
@@ -73,7 +78,7 @@ def step_on_mesh(rank, arch, state_dict, batch, mesh, eps):
     from repro_torch.train import make_train_step
     from repro_torch.train.sharded import gather_leaf, shard_state
 
-    cfg = get_config(arch).smoke()
+    cfg = dataclasses.replace(get_config(arch).smoke(), **(changes or {}))
     lm = LM(cfg, device="cpu")
     lm.load_state_dict(state_dict)
     lm.requires_grad_(True)
@@ -84,7 +89,9 @@ def step_on_mesh(rank, arch, state_dict, batch, mesh, eps):
         step = make_train_step(lm, opt, constant(1e-3),
                                remat=True, clip_norm=0.5,
                                sharding=sharding)
-        _, _, grads = step.loss_grads(state.params, batch)
+        seen = watch(mesh) if watch else contextlib.nullcontext()
+        with seen:
+            _, _, grads = step.loss_grads(state.params, batch)
         grads = {".".join(path): gather_full(g, mesh, sharding.param[path])
                  for path, g in tree_items(grads)}
         local_bytes = sum(p.to_local().numel() * p.to_local().element_size()
@@ -96,12 +103,13 @@ def step_on_mesh(rank, arch, state_dict, batch, mesh, eps):
         # vocabulary's columns gathered whole
         logits, _ = lm.apply(sharding.batch.rows(batch["tokens"]))
     split = sharding.split.flags()
+    mine = {"local_param_bytes": local_bytes, "split": split}
+    if watch:
+        mine["watch"] = seen.record()
     out = {"grads": grads, "params": params,
            "metrics": {k: float(v) for k, v in metrics.items()},
-           "local_param_bytes": local_bytes, "split": split,
-           "logits": logits, "step": int(state.opt.step)}
-    return out if rank == 0 else {"local_param_bytes": local_bytes,
-                                  "split": split}
+           "logits": logits, "step": int(state.opt.step), **mine}
+    return out if rank == 0 else mine
 
 
 def train_cli(rank, world, argv):

@@ -63,7 +63,8 @@ def serve_cases(rank, world, cases):
         cache = lm.init_cache(b, max_len)
         res = {"shapes": [tuple(t.shape) for t in _leaves(cache)],
                "seq": (lm.seq.lo, lm.seq.block, lm.seq.size),
-               "split": lm.split.flags(), "rows": lm.batch.ranks}
+               "split": lm.split.flags(), "moves": lm.split.moves,
+               "rows": lm.batch.ranks}
         rows = lm.batch.rows
         toks_t, lens_t = torch.from_numpy(toks), torch.from_numpy(lens)
         feed_t = torch.from_numpy(feed)

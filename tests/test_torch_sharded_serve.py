@@ -12,7 +12,8 @@ and with its ``float8_e4m3fn`` KV cache) at their smoke configs, from the
 JAX package's weights (``jax.random.key(0)``, converted), run on gloo
 ranks (``_torch_serve_fns.serve_cases``) on (1, 2) and (1, 4) ``("data",
 "model")`` meshes with 4 prompts, on (2, 2) with one prompt, and granite
-on the ep mesh (2, 2, 2) ``("expert", "data", "model")``: a prefill of
+on the ep mesh (2, 2, 2) ``("expert", "data", "model")``, each expert rank
+running its own experts on the tokens an all-to-all brings it: a prefill of
 right-padded prompts of lengths 5, 21, 40 and 9 into a cache of 96
 positions, then 12 decode steps fed the unsharded port's greedy tokens.
 Each call's logits are held within 1e-5 x max|logit| of the unsharded
@@ -193,6 +194,8 @@ def test_split_serving_matches_the_port_and_jax(runs, mesh, case):
     assert flags["vocab"] and flags["heads"] == (cfg.n_heads > 0)
     assert flags["inner"] == cfg.is_ssm
     assert flags["experts"] or flags["moe_ff"] or not cfg.n_experts
+    # the ep mesh's experts lie over ``expert``, a row a rank: tokens move
+    assert flags["ep"] == r0["moves"] == (mesh == EP[0])
     for got, want, jwant in zip(r0["logits"], r0["want"], jax_logits):
         assert _rel(got, want) <= (FP8_TOL if fp8 else PORT_TOL)
         assert _rel(got, jwant) <= (FP8_TOL if fp8 else JAX_TOL)

@@ -20,8 +20,9 @@ by far more than 1e-5 x max|p|: there the split step's parameter is held
 within 1e-5 x max|p| of AdamW applied to the split step's own gathered
 gradient (clipped by its own norm), which the gradient bound holds.
 granite also runs on a fourth mesh, (2, 2, 2) ``("expert", "data",
-"model")``, an ``ep`` mesh: its experts are gathered over ``expert`` and
-each model rank computes its block of every expert's ff columns
+"model")``, an ``ep`` mesh: each expert rank holds and runs its own
+experts (``ep``), the tokens moved to them and back by all-to-alls, and
+each model rank computes its block of those experts' ff columns
 (``moe_ff``), which the plans cut over ``data`` and ``model`` together, so
 a rank's columns interleave. Each rank
 computes the split the plans give (heads, KV heads where they divide, ff,
@@ -68,12 +69,13 @@ EP_MESH = ((2, 2, 2), ("expert", "data", "model"))
 def _want_split(cfg, m, axes=("data", "model")):
     """What the plans split on a model axis of m (every smoke config's
     dims divide it but the KV heads on 4); on a mesh with an ``expert``
-    axis the experts lie on it and each model rank takes its ff columns."""
+    axis (of 2) the experts lie on it, each expert rank runs its own and
+    each model rank takes their ff columns."""
     attn, moe, ep = cfg.n_heads > 0, cfg.n_experts > 0, "expert" in axes
     return {"heads": attn, "kv_heads": attn and cfg.n_kv_heads % m == 0,
             "ff": cfg.family != "ssm", "vocab": True,
             "experts": moe and not ep, "moe_ff": moe and ep,
-            "inner": cfg.is_ssm}
+            "inner": cfg.is_ssm, "ep": moe and ep}
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "granite-moe-1b-a400m"])

@@ -75,18 +75,18 @@ class _Mesh:
 @pytest.mark.parametrize("arch,shape,want", [
     ("granite-moe-1b-a400m", (16, 16),
      dict(heads=True, kv_heads=False, ff=True, vocab=True, experts=True,
-          moe_ff=False, inner=False)),
+          moe_ff=False, inner=False, ep=False)),
     ("granite-moe-1b-a400m", (16, 1), dict.fromkeys(ModelSplit.KEYS,
                                                      False)),
     ("olmo-1b", (16, 16), dict(heads=True, kv_heads=True, ff=True,
                                vocab=True, experts=False, moe_ff=False,
-                               inner=False)),
+                               inner=False, ep=False)),
     ("falcon-mamba-7b", (16, 16), dict(heads=False, kv_heads=False,
                                        ff=False, vocab=True, experts=False,
-                                       moe_ff=False, inner=True)),
+                                       moe_ff=False, inner=True, ep=False)),
     ("jamba-v0.1-52b", (16, 16), dict(heads=True, kv_heads=False, ff=True,
                                       vocab=True, experts=True,
-                                      moe_ff=False, inner=True)),
+                                      moe_ff=False, inner=True, ep=False)),
 ])
 def test_compute_split_reads_the_activation_rules(arch, shape, want):
     cfg = get_config(arch)
