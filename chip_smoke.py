@@ -285,7 +285,11 @@ Phases, each fatal on failure:
     gradient norm within 15c(c)'s bounds of 15a's, 14b's launches a step
     a rank, step time, tokens/s, peak and a profiled loss and gradients
     beside 15c(c)'s; the routing turns that its own top-k would have made
-    are counted. The dry run of granite's train_4k cell cut to 2 layers
+    are counted; (d) ``core.axis_exclusive_scan`` over ``expert`` on CUDA
+    float64 tensors of 64 B and 8 MiB: rank 0's exclusive sum zero, rank
+    1's the ladder's (x1 + x0) - x1 and the total x0 + x1, bit for bit,
+    and timed beside ``core.GpuCostModel``'s link term for the ladder on
+    the NDR link. The dry run of granite's train_4k cell cut to 2 layers
     on ``make_production_mesh(ep=4)`` (run on the host from phase 2 on):
     its state bytes the plan's, twelve all-to-alls over ``expert`` of the
     slot tensor's bytes, no all-gather there. The ranks' logs stay under
@@ -325,6 +329,7 @@ import torch  # noqa: E402
 from repro_torch import lab  # noqa: E402
 from repro_torch import obs as obs_mod  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import GpuCostModel  # noqa: E402
 from repro_torch.data import DocStream, Pipeline  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
@@ -4024,6 +4029,8 @@ EP_TIMEOUT = 420
 EP_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_ep"
 EP_DRY_OUT = Path(__file__).resolve().parent / "build" / \
     "chip_smoke_ep_dryrun.json"
+EP_LADDER_BYTES = (64, 8 << 20)     # 17(d): a float64 tensor a rank
+EP_LADDER_REPS = 5
 EP_DRY = 4              # the dry run's ep cell: make_production_mesh(ep=4),
 EP_DRY_LAYERS = 2       # granite train_4k cut to 2 of its 24 layers
 
@@ -4073,6 +4080,45 @@ def ep_all_to_all(mesh, dev, rank) -> dict:
     return times
 
 
+def ep_ladder(mesh, dev, rank) -> dict:
+    """17(d): ``core.axis_exclusive_scan`` over ``expert`` on CUDA float64
+    tensors of EP_LADDER_BYTES (gloo stages them through the host): rank
+    0's exclusive sum is zero, rank 1's is the ladder's (x1 + x0) - x1,
+    and the total is x0 + x1, bit for bit against the tensors each rank
+    sent (regenerated here from that rank's seed); then each size timed
+    over EP_LADDER_REPS calls after a warm one. Returns {"ms": {bytes: ms
+    a call}, "s": seconds of the whole}."""
+    import torch.distributed as dist
+
+    from repro_torch.core import axis_exclusive_scan
+
+    def sent(r, nbytes):
+        g = torch.Generator(device=dev).manual_seed(3000 + r)
+        return torch.randn(nbytes // 8, generator=g, device=dev,
+                           dtype=torch.float64)
+    t_all = time.perf_counter()
+    times = {}
+    for nbytes in EP_LADDER_BYTES:
+        x = sent(rank, nbytes)
+        exc, total = axis_exclusive_scan(x, mesh, "expert")
+        x0, x1 = sent(0, nbytes), sent(1, nbytes)
+        want = torch.zeros_like(x) if rank == 0 else (x1 + x0) - x1
+        if not (torch.equal(exc, want) and torch.equal(total, x0 + x1)):
+            fail(f"ep-{rank}: the ladder over expert of {nbytes} B is not "
+                 f"exact (exclusive equal: {torch.equal(exc, want)})")
+        del exc, total, x0, x1, want
+        axis_exclusive_scan(x, mesh, "expert")
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(EP_LADDER_REPS):
+            axis_exclusive_scan(x, mesh, "expert")
+        torch.cuda.synchronize()
+        times[str(nbytes)] = (time.perf_counter() - t0) * 1e3 / \
+            EP_LADDER_REPS
+    return {"ms": times, "s": time.perf_counter() - t_all}
+
+
 def ep_child(rank: int, port: int, out: str, smi: str, want: str) -> int:
     """17, rank ``rank`` of two processes sharing the card on the (2, 1, 1)
     ("expert", "data", "model") mesh (``gloo_child``): (a) the all-to-all
@@ -4087,12 +4133,14 @@ def ep_child(rank: int, port: int, out: str, smi: str, want: str) -> int:
     run's routing (MESH_ROUTES): bf16 rounds the two runs' sums apart and
     a router's top-k turns at a near tie on such a difference, which moves
     a token's expert output by O(1) (16(b)); how many tokens' experts
-    would have turned is reported."""
+    would have turned is reported; (d) the axis-scan ladder
+    (``ep_ladder``)."""
     def body(mesh, dev, rank):
         n = GRAD_LAYERS
         granite = dataclasses.replace(get_config(ARCH), n_layers=n,
                                       dtype="float32")
         return {"a": ep_all_to_all(mesh, dev, rank),
+                "d": ep_ladder(mesh, dev, rank),
                 "b": tp_grads("ep-granite-grads", granite, mesh, dev, rank,
                               {"flash_attention": 2 * n,
                                "flash_attention_bwd": n,
@@ -4230,6 +4278,18 @@ def phase_ep(smi: str, mesh_run: dict, tp_run: dict, dryrun) -> dict:
             f"{ranks[1]['a'][case]:.2f} ms a call (ranks 0 / 1), "
             f"{nbytes / 2 / (ms * 1e-3) / 1e9:.2f} GB/s of the half that "
             f"crosses ({smi})")
+    link = GpuCostModel(alpha=0.0)
+    for nbytes, ms in r0["d"]["ms"].items():
+        log(f"[ep] core.axis_exclusive_scan over expert of CUDA float64 "
+            f"{int(nbytes):,} B a rank: exclusive sums and total exact; "
+            f"{ms:.4f} / {ranks[1]['d']['ms'][nbytes]:.4f} ms a call "
+            f"(ranks 0 / 1; one ladder hop and the total's all-reduce, "
+            f"gloo through the host on one card, not the NDR link); "
+            f"GpuCostModel's scan_time((2,), {int(nbytes)}) on the NDR "
+            f"link, its link term alone (alpha has no data-sheet figure): "
+            f"{link.scan_time((2,), int(nbytes)) * 1e3:.6f} ms ({smi})")
+    log(f"[ep] 17(d), the ladder's checks and times, took "
+        f"{r0['d']['s']:.2f} / {ranks[1]['d']['s']:.2f}s (ranks 0 / 1)")
     b = r0["b"]
     slots = sorted({tuple(s) for k, _, s, _ in b["collectives"]
                     if k == "all-to-all"})

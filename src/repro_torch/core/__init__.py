@@ -1,17 +1,18 @@
 """PSTS core — the paper's contribution as a composable library.
 
-Layers carried over from the JAX package so far:
+Layers carried over from the JAX package:
   scan       — prefix-scan primitives (host numpy, torch tensors, and the
                cross-rank ladder along a DeviceMesh dimension)
   hypergrid  — hyper-grid embedding, virtual nodes, optimal dimension
   pslb       — 1-D positional scan load balancing
   psts       — recursive hyper-grid task scheduling
-  cost_model — paper eqs. 8-12
+  cost_model — paper eqs. 8-12, and their costing on H100 cards
   trigger    — crossover-point trigger (Tables 6-7)
   simulator  — paper-experiment cluster simulator (sec. 5)
 """
 
 from .cost_model import (
+    GpuCostModel,
     crossover_imbalance,
     execution_time,
     optimal_cost,
@@ -46,8 +47,8 @@ from .simulator import (
 from .trigger import CrossoverTrigger, TriggerDecision, imbalance
 
 __all__ = [
-    "crossover_imbalance", "execution_time", "optimal_cost", "scan_steps",
-    "step_cost",
+    "GpuCostModel", "crossover_imbalance", "execution_time", "optimal_cost",
+    "scan_steps", "step_cost",
     "HyperGrid", "embed", "factorize", "optimal_dim",
     "PslbResult", "apportion", "distribute_stream", "owner_of_fraction",
     "pslb_assign",

@@ -94,6 +94,11 @@ def axis_exclusive_scan(x: torch.Tensor, mesh, axis_name: str):
 
     Returns ``(exclusive, total)``; a dimension of size 1 gives
     ``(zeros, x)``.
+
+    On a gloo group a device tensor's partial sums travel through host
+    copies: gloo stages its collectives so, but its sends and receives
+    hand the tensor's pointer to the socket, which on a device pointer
+    aborts the process. The adds stay on the tensor's device.
     """
     n = mesh.size(mesh.mesh_dim_names.index(axis_name))
     if n == 1:
@@ -101,22 +106,24 @@ def axis_exclusive_scan(x: torch.Tensor, mesh, axis_name: str):
     group = mesh.get_group(axis_name)
     ranks = dist.get_process_group_ranks(group)
     me = mesh.get_local_rank(axis_name)
+    wire = torch.device("cpu") if dist.get_backend(group) == "gloo" \
+        else x.device
     inc = x.contiguous()
     shift = 1
     while shift < n:
         ops = []
         if me + shift < n:
-            ops.append(dist.P2POp(dist.isend, inc, ranks[me + shift],
-                                  group))
+            ops.append(dist.P2POp(dist.isend, inc.to(wire),
+                                  ranks[me + shift], group))
         got = None
         if me - shift >= 0:
-            got = torch.empty_like(inc)
+            got = torch.empty_like(inc, device=wire)
             ops.append(dist.P2POp(dist.irecv, got, ranks[me - shift],
                                   group))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         if got is not None:
-            inc = inc + got
+            inc = inc + got.to(inc.device)
         shift *= 2
     total = x.clone()
     dist.all_reduce(total, group=group)

@@ -24,12 +24,14 @@ useful-compute ratio that catches remat/redundancy waste.
 
 from __future__ import annotations
 
+from ..core.cost_model import NDR_LINK_BW
+
 __all__ = ["HW", "collective_stats", "model_flops", "roofline_report"]
 
 HW = {
     "peak_flops": 989e12,   # bf16 dense, H100 SXM data sheet
     "hbm_bw": 3.35e12,      # bytes/s, H100 SXM data sheet
-    "ib_bw": 50e9,          # bytes/s each way, one ConnectX-7 NDR port
+    "ib_bw": NDR_LINK_BW,   # bytes/s each way, one ConnectX-7 NDR port
 }
 
 COLL_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",

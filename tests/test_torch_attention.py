@@ -10,6 +10,8 @@ version's mask, and the wrapper's checks of dtype and prompt lengths run
 here; the kernels themselves, and their own tile rule, are held against
 these on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 
 import jax

@@ -7,6 +7,8 @@ package's: a converted ``TrainState`` saved by the port gives the same
 package's save of the same state, and the JAX package's arrays restore into
 the port's state."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import json
 import os
 

@@ -16,6 +16,8 @@ of ``tests/test_lab.py``, ``tests/test_online.py``, ``tests/test_ops.py``,
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import json
 import os
 import subprocess

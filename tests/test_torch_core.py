@@ -2,6 +2,8 @@
 policies) and its torch scans, held against the JAX package's originals on
 the same inputs."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,8 @@ engine on the card against its CPU run. These need an NVIDIA GPU with
 ``nvcc``; without one they skip. Run them on the card with
 ``python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ with the fill clamped to the capacity between them; and the MoE layer
 through both position methods at granite's and jamba's smoke configs. The
 kernel itself runs only on the card (tests/test_torch_cuda.py)."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 from types import SimpleNamespace
 

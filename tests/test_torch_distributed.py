@@ -16,6 +16,8 @@
   without bound ``logical_axis_rules``.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import contextlib
 import os
 import subprocess

@@ -19,6 +19,8 @@ host with the split, each rank projecting only the KV head its query head
 reads), and the activations' all-reduces over ``model`` show in its
 collectives."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 
 jax.experimental.enable_x64 = jax.enable_x64   # see test_torch_kernels.py

@@ -11,6 +11,8 @@ and attended the whole cache (1.8242e11 decode, 2.7058e14 prefill), its
 useful ratios rise by the same factor, and its state bytes a rank are the
 plan's."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import json
 
 import jax

@@ -10,6 +10,8 @@ latencies the tracer records (``WALL_CLOCK`` below). The invariant cases of
 ``tests/test_runtime.py`` run on the port as well.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import json
 
 import jax

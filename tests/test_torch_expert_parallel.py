@@ -35,6 +35,8 @@ meshes: (2, 2, 2), two experts a rank and their ff columns split over
   tensor's bytes, and no all-gather over ``expert``.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 import math
 from concurrent.futures import ThreadPoolExecutor
@@ -134,11 +136,7 @@ def runs(tmp_path_factory):
         toks[i, :n] = rng.integers(0, cfg.vocab_size, size=n)
     lens = np.array(LENGTHS, np.int32)
     feed = _port_run(cfg, state_dict, toks, lens)
-    # each spawn gets tensors of its own: starting the ranks moves a
-    # tensor's storage to shared memory in place, which would pull memory
-    # from under the references computed here meanwhile
-    serve_state = {k: v.clone() for k, v in state_dict.items()}
-    serve_cases = [(cfg, serve_state, toks[SERVE_ROWS[b]],
+    serve_cases = [(cfg, state_dict, toks[SERVE_ROWS[b]],
                     lens[SERVE_ROWS[b]], MAX_LEN, feed[:, SERVE_ROWS[b]],
                     MESHES[mesh], AXES) for mesh, b in SERVE_CASES]
     step_cases = [(MESHES[mesh], AXES, {"moe_mode": mode})
@@ -146,9 +144,8 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ep")
     with ThreadPoolExecutor(2) as pool:
         steps = pool.submit(run_ranks, ep_fns.ep_world, 8, tmp, ARCH,
-                            {k: v.clone() for k, v in state_dict.items()},
-                            {k: v.clone() for k, v in batch.items()},
-                            step_cases, STEP_EPS, SEED, timeout=300)
+                            state_dict, batch, step_cases, STEP_EPS, SEED,
+                            timeout=300)
         serving = pool.submit(run_ranks, ep_fns.ep_serve, 8, tmp,
                               serve_cases, timeout=300)
         refs = {}

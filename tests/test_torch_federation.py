@@ -10,6 +10,8 @@ to the batched backend and is held at rtol 1e-6, with ``device="cpu"``.
 The only values left out are the tracer's wall-clock decision latencies.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import json
 import warnings
 

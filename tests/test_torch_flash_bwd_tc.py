@@ -22,6 +22,8 @@ where they cannot run:
   bf16-rounded output breaks the row bound where dP - D cancels.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,8 @@
   ``mamba_scan_ref`` at rtol 1e-6.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 
 import jax

@@ -8,6 +8,8 @@ validation messages, the DAG scenarios' ``Metrics.summary()`` and
 refusals.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 import jax.experimental
 

@@ -1,6 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
 neither ``jax`` nor the JAX package, and builds no kernel."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import json
 import os
 import subprocess

@@ -4,6 +4,8 @@ it), in float64, plus the dispatch edges the Pallas kernel cannot take
 (E > 128). The CUDA kernels themselves run only on the card: see
 tests/test_torch_cuda.py and chip_smoke.py."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 from types import SimpleNamespace
 
 import jax

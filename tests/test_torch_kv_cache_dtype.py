@@ -8,6 +8,8 @@ package's on the same weights and tokens (logits within 1e-5 x max|logit|,
 the same greedy tokens). ``tests/test_torch_cuda.py`` runs the fp8 cache
 on the card."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 
 import jax

@@ -2,6 +2,8 @@
 batched backend: the same Scenario gives the same fingerprint, the same
 eligibility reason and, on the CPU, the same metrics at rtol 1e-6."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 from pathlib import Path
 

@@ -12,6 +12,8 @@ Tolerance: 1e-4 x max|logit| on logits, 1e-5 on caches. Both sides run in
 float32; the port's attention is a full softmax where the JAX model's is an
 online softmax over 512-key blocks, and the matmuls sum in other orders."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,8 @@ position methods with rebalance on and off, on logits that overflow
 capacity (expert_idx, slot_idx and keep equal, weight within 1e-6); and
 ``moe_apply`` in both modes within 1e-5, with the same parameters."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 
 import jax

@@ -14,6 +14,8 @@ service or the CLI are in ``tests/test_torch_online.py`` and
 ``tests/test_torch_cli.py``.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import json
 import math
 import urllib.error

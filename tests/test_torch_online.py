@@ -18,6 +18,8 @@ stream) run here as well.
 
 from __future__ import annotations
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import io
 import json
 import warnings

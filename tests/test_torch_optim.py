@@ -9,6 +9,8 @@ Tolerance: rtol 1e-6 on float results (both sides compute in float32, the
 port per stage where the JAX package sums over the stacked stages), int8
 codes equal."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,8 @@
 (``_torch_mirror``: the reference file's own source, its ``repro``
 imports pointed at ``repro_torch``)."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 from _torch_mirror import mirror
 
 globals().update(mirror("test_core_psts.py"))

@@ -8,6 +8,8 @@ give them. The cases of ``tests/test_sched.py`` (data balance, straggler
 monitor) and ``tests/test_substrate.py`` (data) run on the port as well.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import pytest
 

@@ -7,6 +7,8 @@ failover plans; the numpy ``psts_schedule`` copy equals the JAX package's;
 and the serve CLI runs end to end with ``--device cpu``, for granite-moe
 and falcon-mamba."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 import json
 import os

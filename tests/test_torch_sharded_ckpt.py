@@ -5,6 +5,8 @@ equals the uninterrupted sharded run bit for bit (every loss, every array
 of the step-4 checkpoint), and the checkpoint rank 0 writes from the
 gathered shards has the JAX package's npz keys, shapes and dtypes."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 
 jax.experimental.enable_x64 = jax.enable_x64   # see test_torch_kernels.py

@@ -22,6 +22,8 @@ Each bound is smaller than the whole model's float32 bytes, so a rank that
 held the model whole would fail it.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import numpy as np
 import torch
 

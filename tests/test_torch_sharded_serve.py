@@ -25,6 +25,8 @@ port's (the float8 cache: see the test); every rank's cache is its block:
 [72, 96) lies past every length, and gemma3's windows cross the edge at
 24; a (1, 1) mesh computes the unsharded port's bits."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace

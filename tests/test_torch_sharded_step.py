@@ -24,6 +24,8 @@ its docstring gives), so a fault that both of the port's paths share
 would show. Each rank holds less than the whole model.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 
 jax.experimental.enable_x64 = jax.enable_x64   # see test_torch_kernels.py

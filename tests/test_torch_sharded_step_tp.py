@@ -29,6 +29,8 @@ computes the split the plans give (heads, KV heads where they divide, ff,
 vocabulary, experts, Mamba channels) and holds less than half the model.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 
 jax.experimental.enable_x64 = jax.enable_x64   # see test_torch_kernels.py

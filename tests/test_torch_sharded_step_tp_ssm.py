@@ -10,6 +10,8 @@ checkpoint of its state), and every array, stage by stage, equals the
 split step's state gathered whole, bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 
 jax.experimental.enable_x64 = jax.enable_x64   # see test_torch_kernels.py

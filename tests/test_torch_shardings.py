@@ -15,6 +15,8 @@ the JAX side through ``jax.eval_shape``, the port's through
 * ``placements`` turns a spec into the DTensor placements.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import functools
 from types import SimpleNamespace
 

@@ -9,6 +9,8 @@ included. The paper-trend cases of ``tests/test_core_simulator.py`` run on
 the port as well.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 from dataclasses import replace
 

@@ -10,6 +10,8 @@ chunked scan against ``selective_scan_chunked``; ``ssm_train``,
 ``ssm_init``'s. The CUDA kernel itself is held against the plain version on
 the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -27,6 +27,8 @@ other port tests hold against the JAX package).
   reads.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import contextlib
 import dataclasses
 
@@ -121,9 +123,17 @@ class _Matmuls(TorchDispatchMode):
 
 def _step_matmuls(cfg, shape, split: bool):
     """The matmuls of model-axis rank 0's loss and gradients, on meta
-    tensors over a fake world of 8 ranks on the ``shape`` mesh."""
+    tensors over a fake world of 8 ranks on the ``shape`` mesh.
+
+    DTensor caches each op's sharding by its meshes, and a ``DeviceMesh``
+    equals one of an earlier world in this process with the same ranks and
+    names: a cached sharding would hand back that mesh, whose process
+    groups were named in its own world and may not exist in this one. So
+    the caches start empty."""
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    _clear_sharding_prop_cache()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
     try:
         mesh = init_device_mesh("cpu", shape,

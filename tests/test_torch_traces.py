@@ -9,6 +9,8 @@ per-tier waits and churn census, and every eligibility reason. The batched
 backend is held at rtol 1e-6, as everywhere else in the port.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 import gzip
 import warnings

@@ -21,6 +21,8 @@
   stops the loop with a final checkpoint, and the CLI.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import json
 import os
 import shutil

@@ -4,6 +4,8 @@ interpret mode), the port's ``simulate_batch`` on the CPU (plain PyTorch
 versions of the kernels) and the numpy ``simulate_scalar`` oracle, per seed
 at rtol 1e-6 — the tolerance of tests/test_runtime_vector.py."""
 
+import _torch_threads  # noqa: F401  (one torch thread a worker)
+
 import dataclasses
 
 import jax
