@@ -6,7 +6,9 @@ probe carry-outs away when the static flag is off):
 
 - :class:`Tracer` — per-task lifecycle spans (submit -> dispatch -> start
   -> migrate/evict/resize -> complete) and per-decision scheduler latency,
-  exported as Chrome-trace / Perfetto JSON, with a bounded-memory ring mode.
+  exported as Chrome-trace / Perfetto JSON, with a bounded-memory ring mode;
+  the batched sweep engine's phases on the ``PID_ENGINE`` lane, on the
+  profiler's wall clock.
 - :class:`ProbeSeries` — sampled time-series: per-node occupancy, queue
   depth, per-tier queued work, and hyper-grid imbalance at every recursion
   level.
@@ -58,6 +60,7 @@ from .registry import (
 )
 from .tracer import (
     NULL_TRACER,
+    PID_ENGINE,
     PID_NODES,
     PID_SCHED,
     PID_TASKS,
@@ -73,6 +76,7 @@ __all__ = [
     "PID_NODES",
     "PID_TASKS",
     "PID_SCHED",
+    "PID_ENGINE",
     "ProbeSeries",
     "imbalance_by_level",
     "CriticalPointMonitor",

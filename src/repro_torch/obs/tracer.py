@@ -17,6 +17,13 @@ dict is the only tracked survivor). A list-of-tuples layout leaves one
 tracked tuple alive per event, which drives thousands of extra gen-0
 collections over a large run.
 
+Wall-clock lanes: the batched sweep engine
+(``runtime.vector_backend.simulate_batch(..., tracer=)``) records its
+phases on :data:`PID_ENGINE` in seconds of :meth:`Tracer.wall_clock`, the
+Unix-epoch clock that ``torch.profiler`` stamps its host and device events
+with, so an exported engine span's ``ts`` compares directly with a profiled
+kernel's start. The lane is named in the export only when it holds events.
+
 Ring mode (``ring=N``) swaps the list for a ``deque(maxlen=8 * N)`` —
 same stride-8 records, and each ``extend`` of a full record evicts
 exactly the oldest event; ``n_dropped`` counts what fell off. Open spans
@@ -44,19 +51,24 @@ from __future__ import annotations
 
 import json
 import math
+import time
 from collections import deque
+from itertools import islice
 
 __all__ = ["Tracer", "NullTracer", "NULL_TRACER", "PID_NODES", "PID_TASKS",
-           "PID_SCHED"]
+           "PID_SCHED", "PID_ENGINE"]
 
 # Process lanes in the exported trace. Tasks get tid = task id under
 # PID_TASKS, node events tid = node index under PID_NODES, scheduler
-# decisions land on PID_SCHED.
+# decisions land on PID_SCHED; the batched engine's phases, on the wall
+# clock, on PID_ENGINE.
 PID_NODES = 1
 PID_TASKS = 2
 PID_SCHED = 3
+PID_ENGINE = 4
 
 _PROCESS_NAMES = {PID_NODES: "nodes", PID_TASKS: "tasks", PID_SCHED: "scheduler"}
+_ENGINE_NAME = "engine (wall clock)"
 
 # sim time unit -> trace microseconds (1 unit = 1 s)
 _TS_SCALE = 1e6
@@ -86,6 +98,15 @@ class Tracer:
         #: federation member tag folded into span ids (0 = standalone)
         self.instance = int(instance)
         self._next_sid = 0
+        # perf_counter's steps from the Unix epoch, fixed here: the
+        # profiler's clock without time.time's jumps
+        self._epoch_ns = time.time_ns() - time.perf_counter_ns()
+
+    def wall_clock(self) -> float:
+        """Seconds since the Unix epoch on the clock ``torch.profiler``
+        stamps its events with (``perf_counter`` from an offset fixed when
+        the tracer was made); the time axis of :data:`PID_ENGINE`."""
+        return (time.perf_counter_ns() + self._epoch_ns) * 1e-9
 
     def next_span_id(self) -> int:
         """Allocate a span id unique across federation members: the
@@ -195,10 +216,13 @@ class Tracer:
 
     # -- export ---------------------------------------------------------
     def to_chrome_trace(self) -> dict:
+        names = dict(_PROCESS_NAMES)
+        if PID_ENGINE in set(islice(self._events, 4, None, 8)):
+            names[PID_ENGINE] = _ENGINE_NAME
         events = [
             {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
              "args": {"name": pname}}
-            for pid, pname in _PROCESS_NAMES.items()
+            for pid, pname in names.items()
         ]
         # one dict literal per branch (no post-insert), bound append: this
         # loop is the bulk of export time for large traces. zip over one

@@ -48,6 +48,23 @@ backlog in another order than the oracle (``(q + w1 + ...) + w`` against
 ``(q + (w1 + ...)) + w``), within a few ulps: responses feed no branch. The
 remaining scatter-add sums whole counts, which float64 holds exactly in any
 order.
+
+Tracing. ``simulate_batch(..., tracer=)`` (and ``sweep_seeds``) records
+one span tree a call on the tracer's engine lane (``obs.PID_ENGINE``):
+``simulate_batch`` over ``to_tensors`` (the copies in), ``tables`` (``S``,
+``base``, the totals call, ``cnt``), ``slot_loop``, ``finish`` (mean, the
+p99 sort, makespan) and ``results`` (the copy back); under ``slot_loop``
+each slot's ``owner_search`` (the mask to ``pw_own``), ``dispatch`` (the
+wave, ``before``, the responses) and ``trigger_service`` (the trigger, the
+backlog sum, the probe, the drain), with ``args.slot``. Span times are the
+host's, in ``Tracer.wall_clock`` seconds: the clock ``torch.profiler``
+stamps kernels with, so a device trace and the spans line up. On a CUDA
+device each span also carries ``args.device_ms``, its interval on the
+stream between CUDA events recorded at the phase boundaries, read once the
+results are back. Each call ends with four counters: ``h2d_bytes``,
+``elements_swept`` (T x B x M, what the slot loop's masked passes touch),
+``tasks`` (the real ones) and ``np_sum_plan_builds``. Without a tracer the
+engine reads no clock and records no event.
 """
 
 from __future__ import annotations
@@ -59,6 +76,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..obs.tracer import PID_ENGINE
 from .metrics import nearest_rank
 from .workload import batch_slots
 
@@ -82,7 +100,11 @@ class _NpSumPlan:
     index n points at a zero, and adding 0.0 changes no bits), the pairwise
     additions level by level, and the chunks' roots in order."""
 
+    #: plans built in this process (the tracer's ``np_sum_plan_builds``)
+    built = 0
+
     def __init__(self, n: int, device, chunk: int):
+        _NpSumPlan.built += 1
         blocks, adds = [], []
 
         def tree(start, length):
@@ -365,6 +387,74 @@ def simulate_scalar(slot: np.ndarray, works: np.ndarray, powers: np.ndarray,
 # Batched PyTorch engine
 # ---------------------------------------------------------------------------
 
+_SLOT_PHASES = ("owner_search", "dispatch", "trigger_service")
+
+
+class _CallSpans:
+    """One traced ``simulate_batch`` call. ``mark(name)`` ends phase
+    ``name`` where the last mark ended it: the host's time on the tracer's
+    clock and, on a CUDA device, an event on the stream from a pool made
+    here. ``close`` turns the marks into the span tree (slot phases under
+    ``slot_loop``, the rest under ``simulate_batch``) and the counters."""
+
+    def __init__(self, tracer, device: torch.device, n_slots: int,
+                 args: dict):
+        self.tracer = tracer
+        self.args = args
+        self.marks: list = []
+        self.events = None
+        if device.type == "cuda":
+            self.stream = torch.cuda.current_stream(device)
+            # the call's own marks: one each for its start, to_tensors,
+            # tables, finish and results, three a slot
+            self.events = [torch.cuda.Event(enable_timing=True)
+                           for _ in range(3 * n_slots + 5)]
+        self.builds = _NpSumPlan.built
+        self.mark(None)
+
+    def mark(self, name, args=None):
+        if self.events is not None:
+            self.events[len(self.marks)].record(self.stream)
+        self.marks.append((name, self.tracer.wall_clock(), args))
+
+    def _device_ms(self, i: int, j: int) -> dict:
+        if self.events is None:
+            return {}
+        return {"device_ms": self.events[i].elapsed_time(self.events[j])}
+
+    def close(self, counters: dict) -> None:
+        tr, marks = self.tracer, self.marks
+        if self.events is not None:
+            self.events[len(marks) - 1].synchronize()
+        root = tr.next_span_id()
+        ids = {"trace_id": root}
+        names = [m[0] for m in marks]
+        # the loop's span: from the tables' end to its last phase's end
+        first = names.index("tables")
+        last = max([first] + [i for i, name in enumerate(names)
+                              if name in _SLOT_PHASES])
+        loop = tr.next_span_id()
+
+        def span(name, i, j, args):
+            tr.span(name, marks[i][1], marks[j][1], pid=PID_ENGINE,
+                    cat="engine", args={**args, **self._device_ms(i, j)})
+
+        span("simulate_batch", 0, len(marks) - 1,
+             {**ids, "span_id": root, **self.args})
+        span("slot_loop", first, last,
+             {**ids, "span_id": loop, "parent_id": root})
+        for i in range(1, len(marks)):
+            name, _, args = marks[i]
+            parent = loop if name in _SLOT_PHASES else root
+            span(name, i - 1, i, {**ids, "span_id": tr.next_span_id(),
+                                  "parent_id": parent, **(args or {})})
+        t_end = marks[-1][1]
+        counters = {**counters,
+                    "np_sum_plan_builds": _NpSumPlan.built - self.builds}
+        for name, value in counters.items():
+            tr.counter(name, t_end, {name: value}, pid=PID_ENGINE)
+
+
 def to_tensors(slot, works, powers, power_scale, *, device):
     """The engine's tensors from the numpy arrays a workload lowers to (what
     ``BatchedBackend.compile`` returns, in either package): ``slot`` (B, M)
@@ -386,13 +476,16 @@ def to_tensors(slot, works, powers, power_scale, *, device):
     return slot, works, powers, scale
 
 
-def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
+def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig,
+                          spans: _CallSpans | None = None):
     """The batched engine on tensors of one device: the JAX package's
     ``_simulate_batch_jax``, with every branch-feeding sum in
     ``simulate_scalar``'s order (see the module docstring). Returns a tuple
     of tensors:
     ``(mean, p99, makespan, fires, moved, count)`` and, with ``cfg.probe``,
-    ``(probe_queue, probe_imbalance, probe_crossover, probe_fires)``."""
+    ``(probe_queue, probe_imbalance, probe_crossover, probe_fires)``.
+    ``spans`` marks the ends of ``tables``, of each slot's phases and of
+    ``finish``."""
     B, M = works.shape
     T, n = cfg.n_slots, cfg.n_nodes
     dev = works.device
@@ -427,6 +520,8 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
     seen = torch.zeros(B, **f64)
     backlog = []
     probes = ([], [], [], []) if cfg.probe else None
+    if spans is not None:
+        spans.mark("tables")
     for t in range(T):
         mask = slot == t                                  # (B, M)
         pw = powers * scale[t]                            # (B, n)
@@ -446,6 +541,8 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
         owner = torch.searchsorted(lam, frac, right=True) - 1
         owner = torch.clamp(owner, 0, n - 1)
         pw_own = torch.gather(pw, 1, owner)
+        if spans is not None:
+            spans.mark("owner_search", {"slot": t})
         # dispatch kernel, all B scenarios in one launch: this slot's wave
         # added to the queues in task order (started from the queue, as
         # np.add.at adds), and each task's queue plus the same-owner work
@@ -459,6 +556,8 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
             mask, (before + works) / torch.clamp_min(pw_own, _TINY), zero)
         queue = new_queue
         seen = seen + cnt[:, t]
+        if spans is not None:
+            spans.mark("dispatch", {"slot": t})
         # -- crossover trigger (and/or the probe's trigger signal — same
         # formulas as simulate_scalar, see the note there)
         if cfg.rebalance or cfg.probe:
@@ -491,6 +590,8 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
                                               fire[:, 0])):
                 series.append(value)
         queue = torch.clamp_min(queue - pw * cfg.dt, 0.0)
+        if spans is not None:
+            spans.mark("trigger_service", {"slot": t})
 
     count = cnt.sum(dim=1)
     mean = torch.where(count > 0, resp.sum(dim=1)
@@ -515,22 +616,52 @@ def _simulate_batch_torch(slot, works, powers, scale, cfg: VectorConfig):
         # stacked along the leading (time) axis; hand back batch-major
         q, imb_s, cross_s, fire_s = (torch.stack(v) for v in probes)
         out = out + (q.permute(1, 0, 2), imb_s.T, cross_s.T, fire_s.T)
+    if spans is not None:
+        spans.mark("finish")
     return out
 
 
+def _h2d_bytes(slot, works, powers, power_scale) -> int:
+    """Bytes ``to_tensors`` copies in: int32 slots, float64 the rest (the
+    powers as given, broadcast on the device)."""
+    return (4 * np.size(slot) + 8 * (np.size(works) + np.size(powers))
+            + (0 if power_scale is None else 8 * np.size(power_scale)))
+
+
 def simulate_batch(slot, works, powers, cfg: VectorConfig,
-                   power_scale=None, *, device=None) -> BatchMetrics:
+                   power_scale=None, *, device=None,
+                   tracer=None) -> BatchMetrics:
     """Run B scenarios in one batched call.
 
     ``slot``/``works``: (B, M); ``powers``: (n,) or (B, n);
     ``power_scale``: optional (T, n) shared up/down schedule. Runs on the
     CUDA device unless ``device`` says otherwise (see
     :func:`repro_torch.device.resolve_device`); returns numpy metrics.
+
+    ``tracer``: an ``obs.Tracer`` that gets the call's span tree on its
+    ``PID_ENGINE`` lane, on the profiler's clock, and its counters (see
+    the module docstring: what each span covers, ``args.device_ms`` on a
+    CUDA device); the metrics are the same bits with or without it.
     """
-    tensors = to_tensors(slot, works, powers, power_scale,
-                         device=resolve_device(device))
-    out = tuple(v.cpu().numpy() for v in _simulate_batch_torch(*tensors, cfg))
+    device = resolve_device(device)
+    spans = None
+    if tracer is not None:
+        B, M = np.shape(works)
+        h2d = _h2d_bytes(slot, works, powers, power_scale)
+        spans = _CallSpans(tracer, device, cfg.n_slots,
+                           {"B": B, "M": M, "T": cfg.n_slots,
+                            "n": cfg.n_nodes})
+    tensors = to_tensors(slot, works, powers, power_scale, device=device)
+    if spans is not None:
+        spans.mark("to_tensors", {"h2d_bytes": h2d})
+    out = tuple(v.cpu().numpy()
+                for v in _simulate_batch_torch(*tensors, cfg, spans))
     mean, p99, makespan, fires, moved, count = out[:6]
+    if spans is not None:
+        spans.mark("results")
+        spans.close({"h2d_bytes": h2d,
+                     "elements_swept": cfg.n_slots * B * M,
+                     "tasks": int(count.sum())})
     probes = (dict(zip(("probe_queue", "probe_imbalance",
                         "probe_crossover", "probe_fires"), out[6:]))
               if cfg.probe else {})
@@ -541,13 +672,15 @@ def simulate_batch(slot, works, powers, cfg: VectorConfig,
 
 def sweep_seeds(process: str, seeds, powers, cfg: VectorConfig, *,
                 power_scale: np.ndarray | None = None, device=None,
-                **workload_kwargs) -> BatchMetrics:
+                tracer=None, **workload_kwargs) -> BatchMetrics:
     """Generate one workload per seed and run the whole sweep in one batched
-    call — the on-device replacement for a Python loop over scenarios."""
+    call — the on-device replacement for a Python loop over scenarios.
+    ``tracer`` traces the call as :func:`simulate_batch` says (the
+    workloads' generation is outside its spans)."""
     from .workload import make_workload
     horizon = cfg.n_slots * cfg.dt
     wls = [make_workload(process, horizon=horizon, seed=int(s),
                          **workload_kwargs) for s in seeds]
     slot, works, _ = batch_slots(wls, cfg.dt, cfg.n_slots)
     return simulate_batch(slot, works, powers, cfg, power_scale=power_scale,
-                          device=device)
+                          device=device, tracer=tracer)
